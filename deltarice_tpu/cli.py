@@ -173,7 +173,7 @@ def cmd_warmup(args):
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="deltarice_tpu",
-        description=f"TPU-native Delta-Rice codec v{__version__} "
+        description=f"Delta-Rice codec v{__version__} "
         f"(HDF5 filter {H5FILTER})",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -217,7 +217,7 @@ def main(argv=None):
 
     pw = sub.add_parser(
         "warmup",
-        help="pre-compile the codec's TPU programs for one geometry so "
+        help="pre-compile the codec's device programs for one geometry so "
         "the first production call is warm (persistent cache)",
     )
     pw.add_argument("--m", type=int, default=8)

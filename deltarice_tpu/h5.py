@@ -2,7 +2,7 @@
 
 The reference ships an HDF5 *filter* (ID 32025) that libhdf5 invokes once per
 chunk inside H5Dread/H5Dwrite (``/root/reference/src/deltaRice.c:468-501``).
-TPU-natively we invert that control flow: h5py's direct-chunk API
+Here we invert that control flow: h5py's direct-chunk API
 (``write_direct_chunk`` / ``read_direct_chunk``) moves raw compressed bytes
 between the file and the application, the device codec runs *outside*
 libhdf5 on batches of chunks, and the dataset still carries filter ID 32025

@@ -3,7 +3,7 @@
 The reference's HDF5-facing adapters are native C (`H5Z` filter class,
 dynamic plugin shim, dlopen symbol loader — ``/root/reference/src/
 deltaRice.c:468-501``, ``deltaRice_h5plugin.c``, ``hdf5_dl.c``). This package
-holds their TPU-framework equivalents: a from-scratch C implementation of
+holds this framework's equivalents: a from-scratch C implementation of
 the Delta-Rice filter (ID 32025) that registers into the process's HDF5 so
 *any* HDF5 application — including plain h5py without this package's direct-
 chunk path — can read and write our files through the standard filter
@@ -76,6 +76,8 @@ def codec_lib() -> "ctypes.CDLL | None":
                     ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,
                     ctypes.c_void_p,
                 ]
+                lib.dr_config_parse.restype = ctypes.c_int
+                lib.dr_compress.restype = ctypes.c_int
                 lib.dr_frame_rows.restype = None
                 lib.dr_frame_rows.argtypes = [
                     ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t,
@@ -86,6 +88,51 @@ def codec_lib() -> "ctypes.CDLL | None":
                 lib = None  # stale library without the helpers
         _codec_lib = lib
     return _codec_lib
+
+
+class _DrConfig(ctypes.Structure):
+    _fields_ = [
+        ("m", ctypes.c_uint32), ("k", ctypes.c_int),
+        ("seg_len", ctypes.c_int64),
+        ("filt", ctypes.c_void_p), ("filt_len", ctypes.c_size_t),
+    ]
+
+
+def native_compress(samples, cd_values) -> bytes:
+    """Compress one chunk of int16 samples with the native C codec's
+    ``dr_compress`` (an implementation independent of the device path,
+    so tests and the card smoke run compare against it byte for byte)."""
+    import numpy as np
+
+    lib = codec_lib()
+    if lib is None:
+        raise RuntimeError("native codec library is not built")
+    x = np.ascontiguousarray(samples, dtype=np.int16).ravel()
+    cd = [int(v) & 0xFFFFFFFF for v in cd_values]
+    cd_arr = (ctypes.c_uint * max(len(cd), 1))(*cd)
+    cfg = _DrConfig()
+    if lib.dr_config_parse(len(cd), cd_arr, ctypes.byref(cfg)) != 0:
+        raise ValueError(f"invalid cd_values {cd}")
+    out = ctypes.c_void_p()
+    nwords = ctypes.c_size_t()
+    try:
+        rc = lib.dr_compress(x.ctypes.data_as(ctypes.c_void_p), x.size,
+                             ctypes.byref(cfg), ctypes.byref(out),
+                             ctypes.byref(nwords))
+        if rc != 0:
+            raise RuntimeError(f"dr_compress failed ({rc})")
+        blob = ctypes.string_at(out.value, nwords.value * 4)
+    finally:
+        if out.value:
+            _libc_free(out)
+        lib.dr_config_free(ctypes.byref(cfg))
+    return blob
+
+
+def _libc_free(ptr) -> None:
+    libc = ctypes.CDLL(None)
+    libc.free.argtypes = [ctypes.c_void_p]
+    libc.free(ptr)
 
 
 def _try_build() -> bool:

@@ -3,7 +3,7 @@
  * Fresh C implementation of the Delta-Rice bitstream for HDF5 filter ID
  * 32025, written against the format spec (see SURVEY.md §7 "format
  * contract"; behavioral reference: /root/reference/src/deltaRice.c). This
- * is the CPU fallback used by third-party HDF5 applications; the TPU
+ * is the CPU fallback used by third-party HDF5 applications; the device
  * framework itself never calls it.
  *
  * Architecture differs from the reference deliberately: compression is

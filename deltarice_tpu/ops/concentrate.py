@@ -1,15 +1,17 @@
-"""Gather-free stream compaction: butterfly concentration.
+"""Gather-free stream compaction: butterfly concentration (XLA).
 
-Both codec kernels leave their output in "sorted with gaps" form: valid
-elements whose destination indices are strictly increasing along the slot
-axis, interleaved with dead slots. Compacting that to a dense stream is the
+Compacts "sorted with gaps" data — valid elements whose destination
+indices are strictly increasing along the slot axis, interleaved with dead
+slots — to a dense stream. No codec path uses it now (the GPU kernels
+write every word and sample at its final index); it stays as a tested
+building block. Compacting such data is the
 classic *data concentration* problem, and the hypercube routing result
 (Nassimi & Sahni) applies: with distinct, monotone destinations, routing
 LSB-first through log2 stages — "move left by 2^b iff bit b of your
 remaining displacement is set" — is conflict-free.
 
 That gives an O(R log R) compaction built ONLY from static shifts and
-selects: no gathers (~56 Melem/s on TPU), no scatters, and ~14 passes
+selects: no gathers, no scatters, and ~14 passes
 instead of a bitonic sort's ~196. Each pass is a shift-left-by-2^b of the
 (value, displacement) pair plus two selects.
 

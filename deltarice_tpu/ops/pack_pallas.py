@@ -1,475 +1,153 @@
-"""Pallas TPU encode kernel: fused delta/zigzag/Rice pack.
+"""GPU encode kernel: fused delta / zigzag / Rice codeword / bit pack.
 
-The XLA packer (:mod:`.pack_xla`) is correct everywhere but its
-prefix-sum + boundary-gather placement runs at gather speed on TPU
-(~56 Melem/s, ~1 s per 14 MB batch). This kernel replaces it on TPU with
-the same architecture as the decode kernel (:mod:`.unpack_pallas`):
+Pallas through Triton. One GPU thread owns one segment and writes its
+bitstream in order — the scheme of the native codec's ``bw_put``
+(``native/src/dr_codec.c``) and of the reference's serial 32-bit
+accumulator (``compressWithRiceCoding``):
 
-* **Lanes x 8 sublanes = 1024 segments** encode in lockstep; the bit
-  accumulator, sample counter and delta state are per-lane registers.
-* **Sample-synchronous loop.** Codewords are <= 25 bits < 32, so appending
-  one codeword to the 64-bit accumulator window completes AT MOST one
-  32-bit output word — each sample therefore owns exactly one (possibly
-  empty) statically-addressed emission slot. No dynamic stores exist.
-* **Fused pipeline.** The wrapping-int16 delta filter, zigzag, codeword
-  construction and bit packing all happen in registers in one pass.
-* **Concentration placement.** Emission slots are in stream order
-  (destinations strictly increasing), so the final packed stream comes
-  from butterfly concentration (:mod:`.concentrate`) — ~14 shift+select
-  passes; gathers/scatters/sorts never appear. For slot axes < 2**15 the
-  kernel emits the concentration's packed ``disp << 16 | halfword``
-  planes directly (XLA cannot fuse producers into a ``pallas_call``, so
-  a separate packing pass would round-trip the staging through HBM).
-* **In-kernel tail flush.** The slot grid always has at least one
-  inactive slot at index ``length`` (one extra sample chunk is added
-  when ``length`` is chunk-aligned); the last grid step writes each
-  segment's final partial word there, so no separate tail column is
-  ever concatenated on the host/XLA side.
-* **Sample-chunked sequential grid** carries (accumulator, bit count,
-  word count, previous sample) across chunks in VMEM scratch so any
-  segment length fits VMEM.
+* the thread walks its segment's samples in a loop inside the kernel,
+  carrying the previous sample (delta state), a 32-bit accumulator and its
+  fill count;
+* each sample's codeword (<= 25 bits) is appended; when the accumulator
+  fills, the completed uint32 word is stored at the segment's next word
+  index and the overflow bits start the next word;
+* after the last valid sample the partial word is flushed, zero-filled at
+  the low end like the reference (``deltaRice.c:237-241``).
+
+Samples are read from a (L, rows) transposed copy, so the 32 threads of a
+warp load one contiguous 64-byte line per step. Words go straight to their
+final (rows, max_words) position; the output buffer starts as zeros so
+everything past each stream is zero (the sub-stream merge relies on it).
+
+The XLA packer (:mod:`.pack_xla`) computes the same words with prefix sums
+and is the reference these kernels are tested against.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..config import ESCAPE_Q
-
-#: encode placement routing. Measured on TPU v5e (round 4): the untiled
-#: packed lane-roll placement beats the tiled (sublane-shift) butterfly on
-#: every packed-eligible geometry tried (Nab [1024,7000] 17.4 vs 12.8
-#: GB/s; nEDM sub-block encode 9.0 vs 8.2), so the packed placement is the
-#: default wherever it applies. DELTARICE_TPU_TILED_CONC=2 forces the
-#: tiled placement (A/B benchmarking); =0 also disables tiled elsewhere.
-_TILED_FORCE = os.environ.get("DELTARICE_TPU_TILED_CONC", "1") == "2"
+from ..config import ESCAPE_LEN, ESCAPE_Q
 
 _U32 = jnp.uint32
-_LANES = 128
-_SB = 8
-_GROUP = 16          # samples per inner unrolled group
-_CHUNK = 512         # samples per grid step
-_INVALID = 0x7FFFFFFF  # int32 max as a python constant (traced scalars cannot be captured by kernels)
-_DEAD = -(1 << 31)   # dead slot marker of the packed concentration planes
+
+#: segments (GPU threads) per program; one warp per program
+BLOCK = 32
 
 
-def _pack_kernel(x_ref, nvalid_ref, prev0_ref, wstage_ref, kstage_ref,
-                 nw_ref, nb_ref, *rest, sc: int, k: int,
-                 diff: bool, packed: bool, tail_row: int, rate: int = 1):
-    """One grid step: encode ``sc`` samples of 1024 segments.
+def launch_shape(rows: int) -> tuple[int, int]:
+    """(programs, threads) one kernel call launches for ``rows`` segments
+    — one thread per segment, rounded up to whole programs."""
+    programs = -(-rows // BLOCK)
+    return programs, programs * BLOCK
 
-    x_ref:      (sc*8, 128) int16 — row i*8+s is sample i of group s.
-    nvalid_ref: (8, 128) int32 — valid samples per segment.
-    prev0_ref:  (8, 128) int32 — delta-filter state before each segment's
-                first sample (0 for whole waveforms; sub-block splits of a
-                long waveform pass the previous sub-block's last sample,
-                which makes the split encode bit-identical to the serial
-                one — the delta recurrence's only cross-block state).
-    wstage_ref: (sc*8//rate, 128) — emitted word of emission slot i (or
-                0), as uint32; with ``packed``, the int32 concentration
-                LEADER plane ``disp << 16 | word-high-half`` (dead =
-                INT32_MIN).
-    kstage_ref: (sc*8//rate, 128) int32 — word index key (INT32_MAX if
-                no word); with ``packed``, the int16 FOLLOWER plane of
-                raw low halfwords (routed by the leader's bits
-                downstream).
-    nw_ref:     (8, 128) int32 — total words (written by the last step).
-    nb_ref:     (8, 128) int32 — total code BITS (written by the last
-                step); sub-block streams concatenate at bit offsets, so
-                the merge needs exact bit lengths, not word counts.
-    rest:       [of_ref (8, 128) int32 when rate > 1,] carry_ref
-                ((40|48), 128) int32 scratch (prev/pos/n/acc_hi/acc_lo
-                [/overflow]), scratch_ref (2*GROUP*8//rate, 128) int32
-                per-group staging.
-    tail_row:   static staging row (within the last chunk's block) of
-                the tail emission slot, where the final partial word
-                lands.
-    rate:       samples per emission slot. 1 = classic (a codeword
-                completes at most one word, so each sample owns a slot).
-                2 = HALF-RATE: a slot per sample PAIR — valid whenever
-                no pair completes two words (codeword pairs spanning
-                >= 33 bits with the worst bit phase); a double-emit
-                sets the segment's overflow flag and the caller
-                re-encodes that segment at rate 1, exactly (the same
-                speculate/flag/re-do contract as the decode service
-                rate). Dense physics data double-emits only on adjacent
-                near-escapes, so halving the staging/placement is ~free.
-    """
-    if rate > 1:
-        of_ref, carry_ref, scratch_ref = rest
-    else:
-        of_ref = None
-        carry_ref, scratch_ref = rest
-    c = pl.program_id(1)
 
-    @pl.when(c == 0)
-    def _():
-        carry_ref[:, :] = jnp.zeros_like(carry_ref)
-        carry_ref[0:8, :] = prev0_ref[:, :]
-
-    prev = carry_ref[0:8, :]
-    pos = carry_ref[8:16, :]
-    n = carry_ref[16:24, :]
-    ahi = carry_ref[24:32, :].astype(_U32)
-    alo = carry_ref[32:40, :].astype(_U32)
-    oflag = carry_ref[40:48, :] if rate > 1 else None
-    nv = nvalid_ref[:, :]
-
-    gsz = _GROUP * _SB
+def _encode_kernel(xt_ref, nv_ref, p0_ref, _zeros_ref, words_ref, nw_ref,
+                   nb_ref, *, length: int, k: int, diff: bool, rows: int,
+                   max_words: int):
+    pid = pl.program_id(0)
+    row = pid * BLOCK + jnp.arange(BLOCK, dtype=jnp.int32)
+    live = row < rows
+    nv = plgpu.load(nv_ref.at[row], mask=live, other=0)
+    prev0 = plgpu.load(p0_ref.at[row], mask=live, other=0)
     kmask = _U32((1 << k) - 1)
+    last = max_words - 1
 
-    def group_step(g, carry):
-        if rate > 1:
-            prev, pos, n, ahi, alo, ofl = carry
-        else:
-            prev, pos, n, ahi, alo = carry
-            ofl = None
-        row0 = pl.multiple_of(g * gsz, gsz)
-        xg = x_ref[pl.ds(row0, gsz), :].astype(jnp.int32)
-        # --- codeword computation, hoisted out of the serial chain:
-        # delta/zigzag/length/value have no cross-sample dependency (the
-        # delta needs only the RAW previous sample, a static row shift),
-        # so they vectorize over the whole group — the per-sample loop
-        # below carries nothing but the bit accumulator.
-        base = c * sc + g * _GROUP
-        gidx_rows = base + jax.lax.broadcasted_iota(
-            jnp.int32, (gsz, _LANES), 0
-        ) // _SB
-        active_g = gidx_rows < pltpu.repeat(nv, _GROUP, 0)
+    def step(i, carry):
+        prev, acc, nb, nw = carry
+        x = plgpu.load(xt_ref.at[i, pl.ds(pid * BLOCK, BLOCK)])
+        x = x.astype(jnp.int32)
         if diff:
-            xprev = jnp.concatenate([prev, xg[: gsz - _SB]], axis=0)
-            d = ((xg - xprev) << 16) >> 16  # wrapping int16 difference
-            # carry: the last RAW sample while the lane is active (an
-            # inactive tail never reads it — masked below)
-            prev = jnp.where(
-                base + _GROUP - 1 < nv, xg[gsz - _SB :], prev
-            )
+            d = ((x - prev) << 16) >> 16  # wrapping int16 difference
+            prev = x
         else:
-            d = xg
-        u_g = ((d << 1) ^ (d >> 31)).astype(_U32)  # branchless zigzag
-        q_g = (u_g >> k).astype(jnp.int32)
-        esc_g = q_g >= ESCAPE_Q
-        # q+1+k for q<8, 25 = 8+1+16 for the escape
-        clen_g = jnp.where(
-            active_g, jnp.minimum(q_g, 8) + (1 + k)
-            + jnp.where(esc_g, 16 - k, 0), 0
-        )
-        val_g = jnp.where(
-            esc_g, _U32(1 << 16) | u_g, _U32(1 << k) | (u_g & kmask)
-        )
-        val_g = jnp.where(active_g, val_g, _U32(0))
-        hsz = gsz // rate
-        pend_lead = pend_fol = pend_emit = None
-        for tt in range(_GROUP):
-            clen = clen_g[tt * _SB : (tt + 1) * _SB, :]
-            val = val_g[tt * _SB : (tt + 1) * _SB, :]
-            gidx = base + tt
-            # append to the 64-bit window (top-aligned in ahi:alo);
-            # o = bits past the hi word; o <= 0 means the codeword fits
-            o = pos + clen - 32  # in (-32, 25]
-            o_pos = jnp.maximum(o, 0).astype(_U32)
-            o_neg = jnp.maximum(-o, 0).astype(_U32) & _U32(31)
-            hi_add = jnp.where(o > 0, val >> o_pos, val << o_neg)
-            lo_add = jnp.where(o > 0, val << ((_U32(32) - o_pos) & _U32(31)),
-                               _U32(0))
-            ahi = ahi | hi_add
-            alo = alo | lo_add
-            pos = pos + clen
-            emit = pos >= 32
-            if packed and rate > 1:
-                # REDUCED-RATE emission: slot = R consecutive samples.
-                # The slot's word (at most one unless flagged) merges in
-                # registers; a second emit within the slot makes the row
-                # garbage, but the segment is flagged and re-encoded at
-                # rate 1, exactly.
-                shift = rate.bit_length() - 1  # rate is a power of two
-                disp = ((gidx >> shift) - n) << 16
-                wi = ahi.astype(jnp.int32)
-                lead = jnp.where(emit, disp | ((wi >> 16) & 0xFFFF), _DEAD)
-                fol = wi & 0xFFFF
-                if tt % rate == 0:
-                    pend_lead, pend_fol, pend_emit = lead, fol, emit
-                else:
-                    ofl = ofl | (emit & pend_emit).astype(jnp.int32)
-                    pend_lead = jnp.where(emit, lead, pend_lead)
-                    pend_fol = jnp.where(emit, fol, pend_fol)
-                    pend_emit = pend_emit | emit
-                if tt % rate == rate - 1:
-                    h = tt // rate
-                    scratch_ref[h * _SB : (h + 1) * _SB, :] = pend_lead
-                    scratch_ref[(_GROUP // rate + h) * _SB
-                                : (_GROUP // rate + h + 1) * _SB, :] = (
-                        pend_fol
-                    )
-            elif packed:
-                # leader plane: disp + high halfword; follower plane:
-                # pure low halfword (the concentration routes it by the
-                # leader's bits, so the displacement is stored ONCE and
-                # the follower moves at int16 width)
-                disp = (gidx - n) << 16
-                wi = ahi.astype(jnp.int32)
-                scratch_ref[tt * _SB : (tt + 1) * _SB, :] = jnp.where(
-                    emit, disp | ((wi >> 16) & 0xFFFF), _DEAD
-                )
-                scratch_ref[(_GROUP + tt) * _SB : (_GROUP + tt + 1) * _SB, :] = (
-                    wi & 0xFFFF
-                )
-            else:
-                scratch_ref[tt * _SB : (tt + 1) * _SB, :] = jnp.where(
-                    emit, ahi, _U32(0)
-                ).astype(jnp.int32)
-                scratch_ref[(_GROUP + tt) * _SB : (_GROUP + tt + 1) * _SB, :] = (
-                    jnp.where(emit, n, _INVALID)
-                )
-            ahi = jnp.where(emit, alo, ahi)
-            alo = jnp.where(emit, _U32(0), alo)
-            pos = jnp.where(emit, pos - 32, pos)
-            n = n + emit.astype(jnp.int32)
-        row0h = pl.multiple_of(g * hsz, hsz)
-        wstage_ref[pl.ds(row0h, hsz), :] = scratch_ref[
-            0:hsz, :
-        ].astype(wstage_ref.dtype)
-        kstage_ref[pl.ds(row0h, hsz), :] = scratch_ref[
-            hsz : 2 * hsz, :
-        ].astype(kstage_ref.dtype)
-        if rate > 1:
-            return prev, pos, n, ahi, alo, ofl
-        return prev, pos, n, ahi, alo
+            d = x
+        u = ((d << 1) ^ (d >> 31)).astype(_U32)  # zigzag
+        q = u >> k
+        esc = q >= ESCAPE_Q
+        ln = jnp.where(esc, ESCAPE_LEN, q.astype(jnp.int32) + 1 + k)
+        val = jnp.where(esc, _U32(1 << 16) | u, _U32(1 << k) | (u & kmask))
+        ln = jnp.where(i < nv, ln, 0)
+        # append ln bits to the acc's nb: every shift stays in [0, 31]
+        # (Triton shifts by >= 32 are undefined)
+        tot = nb + ln
+        fits = tot < 32
+        part = jnp.where(fits & (ln > 0),
+                         val << jnp.clip(32 - tot, 0, 31).astype(_U32),
+                         _U32(0))
+        word = acc | (val >> jnp.clip(tot - 32, 0, 31).astype(_U32))
+        rest = jnp.where(tot > 32,
+                         val << jnp.clip(64 - tot, 0, 31).astype(_U32),
+                         _U32(0))
+        plgpu.store(words_ref.at[row, jnp.minimum(nw, last)], word,
+                    mask=live & ~fits)
+        acc = jnp.where(fits, acc | part, rest)
+        nb = jnp.where(fits, tot, tot - 32)
+        nw = nw + (~fits).astype(jnp.int32)
+        return prev, acc, nb, nw
 
-    init = (prev, pos, n, ahi, alo)
-    if rate > 1:
-        init = init + (oflag,)
-    out_carry = jax.lax.fori_loop(0, sc // _GROUP, group_step, init)
-    prev, pos, n, ahi, alo = out_carry[:5]
-    carry_ref[0:8, :] = prev
-    carry_ref[8:16, :] = pos
-    carry_ref[16:24, :] = n
-    carry_ref[24:32, :] = ahi.astype(jnp.int32)
-    carry_ref[32:40, :] = alo.astype(jnp.int32)
-    if rate > 1:
-        carry_ref[40:48, :] = out_carry[5]
-
-    # tail flush: slot ``length`` is inactive for every segment (lp >
-    # length by construction), so the final partial word takes it over
-    @pl.when(c == pl.num_programs(1) - 1)
-    def _():
-        has_tail = pos > 0
-        nb_ref[:, :] = n * 32 + pos
-        if rate > 1:
-            of_ref[:, :] = carry_ref[40:48, :]
-        if packed:
-            dispt = ((c * (sc // rate) + tail_row // _SB) - n) << 16
-            wi = ahi.astype(jnp.int32)
-            wstage_ref[tail_row : tail_row + _SB, :] = jnp.where(
-                has_tail, dispt | ((wi >> 16) & 0xFFFF), _DEAD
-            ).astype(wstage_ref.dtype)
-            kstage_ref[tail_row : tail_row + _SB, :] = (
-                wi & 0xFFFF
-            ).astype(kstage_ref.dtype)
-        else:
-            wstage_ref[tail_row : tail_row + _SB, :] = jnp.where(
-                has_tail, ahi, _U32(0)
-            ).astype(wstage_ref.dtype)
-            kstage_ref[tail_row : tail_row + _SB, :] = jnp.where(
-                has_tail, n, _INVALID
-            )
-        nw_ref[:, :] = n + has_tail.astype(jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4))
-def pack_encode_pallas(x: jnp.ndarray, nvalid: jnp.ndarray, k: int,
-                       max_words: int, diff: bool = True, prev0=None):
-    """Encode (num_segments, L) int16 samples into packed word streams as
-    ONE program: Mosaic kernel -> concentration placement.
-    Returns (words (S, max_words) uint32, nwords (S,)).
-    """
-    words, nwords, _ = pack_encode_pallas_bits(
-        x, nvalid, k, max_words, diff, prev0
+    zero = jnp.zeros((BLOCK,), jnp.int32)
+    _, acc, nb, nw = jax.lax.fori_loop(
+        0, length, step, (prev0, jnp.zeros((BLOCK,), _U32), zero, zero)
     )
-    return words, nwords
+    tail = nb > 0
+    plgpu.store(words_ref.at[row, jnp.minimum(nw, last)], acc,
+                mask=live & tail)
+    plgpu.store(nb_ref.at[row], nw * 32 + nb, mask=live)
+    plgpu.store(nw_ref.at[row], nw + tail.astype(jnp.int32), mask=live)
 
 
 @functools.partial(jax.jit, static_argnums=(2, 3, 4, 6))
-def pack_encode_pallas_bits(x: jnp.ndarray, nvalid: jnp.ndarray, k: int,
-                            max_words: int, diff: bool = True, prev0=None,
-                            rate: int = 1):
-    """:func:`pack_encode_pallas` plus exact per-stream bit counts and an
-    initial delta state — the extras sub-block-split encoding of long
-    waveforms needs (streams merge at bit offsets; each sub-block's delta
-    chain continues from the previous one's last sample).
-    Returns (words (S, max_words) uint32, nwords (S,), nbits (S,)); with
-    ``rate`` > 1 (half-rate emission, packed-only) additionally returns
-    the (S,) bool overflow flags — flagged rows' words/planes are
-    garbage and must be re-encoded at rate 1 (nwords/nbits stay exact).
+def pack_encode_pallas(x: jnp.ndarray, nvalid: jnp.ndarray, k: int,
+                       max_words: int, diff: bool = True, prev0=None,
+                       interpret: bool = False):
+    """Encode (rows, L) int16 segments to Rice word streams on the GPU.
+
+    Args:
+      x: (rows, L) int16 samples (or pre-filtered values with
+        ``diff=False``), zero past each row's ``nvalid``.
+      nvalid: (rows,) valid samples per row.
+      k: log2(M).
+      max_words: static output width; must be >= the worst case
+        (``RiceConfig.max_words(L)``).
+      diff: apply the delta pre-filter in the kernel; False encodes ``x``
+        as already-filtered values (generic FIR filters, split halos).
+      prev0: optional (rows,) sample preceding each row's first — sub-block
+        splits of a long waveform pass the previous block's last sample,
+        which makes the split encode bit-identical to the serial one.
+      interpret: run in Pallas interpret mode (CPU tests).
+
+    Returns:
+      (words (rows, max_words) uint32 zero past each stream,
+       nwords (rows,) int32, nbits (rows,) int32)
     """
-    packed = _is_packed(x.shape[1])
-    if rate > 1:
-        wstage, kstage, nwords, nbits, bad = _encode_kernel_program(
-            x, nvalid, k, diff, prev0, rate=rate
-        )
-        words = _placement(wstage, kstage, max_words, packed)
-        return words, nwords, nbits, bad
-    if packed and _TILED_FORCE:
-        from .concentrate_pallas import concentrate_tiled
-        from .unpack_pallas import untile_rows
-
-        wstage, kstage, nwords, nbits = _encode_kernel_program(
-            x, nvalid, k, diff, prev0, tiled=True
-        )
-        lp = wstage.shape[1] // _SB
-        n_out = min(max_words, lp)
-        out_t = concentrate_tiled(
-            (wstage, kstage), n_out, _SB, min(lp - 1, (1 << 15) - 1),
-            "u32",
-        )
-        words = untile_rows(out_t, x.shape[0], _SB)
-        if words.shape[1] > max_words:
-            words = words[:, :max_words]
-        elif words.shape[1] < max_words:
-            words = jnp.pad(words, ((0, 0), (0, max_words - words.shape[1])))
-        return words, nwords, nbits
-    wstage, kstage, nwords, nbits = _encode_kernel_program(
-        x, nvalid, k, diff, prev0
-    )
-    words = _placement(wstage, kstage, max_words, packed)
-    return words, nwords, nbits
-
-
-def _is_packed(length: int) -> bool:
-    """Packed-plane emission requires displacements < 2**15."""
-    return (length // _CHUNK + 1) * _CHUNK < (1 << 15)
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 5, 6))
-def _encode_kernel_program(x: jnp.ndarray, nvalid: jnp.ndarray, k: int,
-                           diff: bool, prev0=None, tiled: bool = False,
-                           rate: int = 1):
-    from .transpose_pallas import transpose2d
-
-    nseg, length = x.shape
-    bseg = _SB * _LANES
-    blocks = -(-nseg // bseg)
-    sc = _CHUNK
-    # always leave >= 1 inactive slot so the tail flush has a home at
-    # the tail slot (adds one whole chunk when length is chunk-aligned;
-    # at rate > 1 the tail SLOT covers rate samples, so lengths within
-    # rate-1 of a chunk boundary need the extra chunk too)
-    n_chunks = length // sc + 1
-    if rate * (-(-length // rate)) >= n_chunks * sc:
-        n_chunks += 1
-    lp = n_chunks * sc
-    packed = _is_packed(length)
-    if rate > 1:
-        assert packed and not tiled, "half-rate emission is packed-only"
-        assert sc % rate == 0 and _GROUP % rate == 0
-    x = jnp.pad(x, ((0, blocks * bseg - nseg), (0, lp - length)))
-    nv = jnp.pad(nvalid.astype(jnp.int32), (0, blocks * bseg - nseg))
+    rows, length = x.shape
+    if rows == 0:
+        return (jnp.zeros((0, max_words), _U32), jnp.zeros((0,), jnp.int32),
+                jnp.zeros((0,), jnp.int32))
+    programs, threads = launch_shape(rows)
+    xt = jnp.pad(x.astype(jnp.int16), ((0, threads - rows), (0, 0))).T
     if prev0 is None:
-        prev0 = jnp.zeros((nseg,), jnp.int32)
-    p0 = jnp.pad(prev0.astype(jnp.int32), (0, blocks * bseg - nseg))
-
-    x3 = x.reshape(blocks, bseg, lp)
-    xt = jax.vmap(transpose2d)(x3)  # (blocks, lp, bseg)
-    xt = xt.reshape(blocks, lp * _SB, _LANES)
-    nv3 = nv.reshape(blocks, _SB, _LANES)
-    p03 = p0.reshape(blocks, _SB, _LANES)
-
-    # tail slot: the first emission slot covering only samples >= length
-    # (at rate 2 an odd length's last sample shares slot (length-1)//2,
-    # so the tail home is ceil((length+1)/2) = (length+1)//2)
-    tail_slot = (length + rate - 1) // rate
-    tail_row = (tail_slot - (n_chunks - 1) * (sc // rate)) * _SB
-    kern = functools.partial(
-        _pack_kernel, sc=sc, k=k, diff=diff, packed=packed,
-        tail_row=tail_row, rate=rate,
+        prev0 = jnp.zeros((rows,), jnp.int32)
+    kernel = functools.partial(
+        _encode_kernel, length=length, k=k, diff=diff, rows=rows,
+        max_words=max_words,
     )
-    gsz = _GROUP * _SB
-    small = pl.BlockSpec((None, _SB, _LANES), lambda b, c: (b, 0, 0),
-                         memory_space=pltpu.VMEM)
-    stage = pl.BlockSpec((None, sc * _SB // rate, _LANES),
-                         lambda b, c: (b, c, 0),
-                         memory_space=pltpu.VMEM)
-    out_specs = [stage, stage, small, small]
-    out_shape = [
-        jax.ShapeDtypeStruct(
-            (blocks, lp * _SB // rate, _LANES),
-            jnp.int32 if packed else jnp.uint32,
-        ),
-        # packed: follower plane is pure int16 low halfwords
-        jax.ShapeDtypeStruct((blocks, lp * _SB // rate, _LANES),
-                             jnp.int16 if packed else jnp.int32),
-        jax.ShapeDtypeStruct((blocks, _SB, _LANES), jnp.int32),
-        jax.ShapeDtypeStruct((blocks, _SB, _LANES), jnp.int32),
-    ]
-    if rate > 1:
-        out_specs.append(small)
-        out_shape.append(
-            jax.ShapeDtypeStruct((blocks, _SB, _LANES), jnp.int32)
-        )
-    out = pl.pallas_call(
-        kern,
-        grid=(blocks, n_chunks),
-        in_specs=[
-            pl.BlockSpec((None, sc * _SB, _LANES), lambda b, c: (b, c, 0),
-                         memory_space=pltpu.VMEM),
-            small,
-            small,
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM((48 if rate > 1 else 40, _LANES), jnp.int32),
-            pltpu.VMEM((2 * gsz // rate, _LANES), jnp.int32),
-        ],
-    )(xt, nv3, p03)
-    wstage, kstage, nw, nb = out[:4]
-
-    def untile(a):
-        rows = a.shape[1] // _SB
-        t = jax.vmap(transpose2d)(a.reshape(blocks, rows, bseg))
-        return t.reshape(blocks * bseg, rows)[:nseg]
-
-    if not tiled:
-        wstage = untile(wstage)
-        kstage = untile(kstage)
-    nw = nw.reshape(blocks * bseg)[:nseg]
-    nb = nb.reshape(blocks * bseg)[:nseg]
-    if rate > 1:
-        bad = out[4].reshape(blocks * bseg)[:nseg] != 0
-        return wstage, kstage, nw, nb, bad
-    return wstage, kstage, nw, nb
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3))
-def _placement(wstage, kstage, max_words: int, packed: bool):
-    """Pack emitted words densely by stream index.
-
-    Emission slots are in stream order (slot = sample index, destinations
-    strictly increasing), i.e. "sorted with gaps" — exactly the butterfly
-    concentration precondition, which costs ~14 shift+select passes instead
-    of a ~196-pass sort network. In packed mode the kernel already emitted
-    the concentration's leader + int16 follower planes; otherwise (slot
-    axis >= 2**15, where
-    displacements outgrow the packed 15-bit field) the XLA two-plane
-    butterfly routes (value, key) staging.
-    """
-    n_out = min(max_words, wstage.shape[1])
-    if packed:
-        from .concentrate_pallas import concentrate_packed
-
-        out = concentrate_packed((wstage, kstage), n_out, wide=True)
-    else:
-        from .concentrate_pallas import concentrate_pallas
-
-        slot = jnp.arange(kstage.shape[1], dtype=jnp.int32)[None, :]
-        disp = jnp.where(kstage != _INVALID, slot - kstage, -1)
-        out = concentrate_pallas(wstage, disp, n_out)
-    if out.shape[1] < max_words:
-        out = jnp.pad(out, ((0, 0), (0, max_words - out.shape[1])))
-    return out
+    return pl.pallas_call(
+        kernel,
+        out_shape=(jax.ShapeDtypeStruct((rows, max_words), _U32),
+                   jax.ShapeDtypeStruct((rows,), jnp.int32),
+                   jax.ShapeDtypeStruct((rows,), jnp.int32)),
+        grid=(programs,),
+        input_output_aliases={3: 0},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
+        interpret=interpret,
+        name="deltarice_encode",
+    )(xt, nvalid.astype(jnp.int32), prev0.astype(jnp.int32),
+      jnp.zeros((rows, max_words), _U32))

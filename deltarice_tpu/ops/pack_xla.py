@@ -5,7 +5,7 @@ reference's uint32 word stream (``compressWithRiceCoding``,
 ``/root/reference/src/deltaRice.c:191-244``): codewords are laid end-to-end
 MSB-first; the final partial word is zero-padded at the low end (``:237-241``).
 
-TPU-first design: instead of the reference's sequential 64-bit accumulator,
+Data-parallel design: instead of the reference's sequential 64-bit accumulator,
 the bit offset of every codeword is a parallel prefix-sum of lengths; each
 codeword then contributes to exactly two adjacent words (all codewords are
 <= 32 bits, so a codeword starting at bit offset ``o`` in word ``w`` ends

@@ -1,703 +1,118 @@
-"""Pallas TPU decode kernel: word-synchronous parallel Rice decoding.
+"""GPU decode kernel: Rice bit-window decode with the delta prefix sum fused.
 
-The reference decoder walks a serial bit cursor per waveform
-(``decompressWithRiceCoding``, ``/root/reference/src/deltaRice.c:138-189``);
-its only parallelism is OpenMP across waveforms. A literal port (one
-``lax.scan`` step per sample) pays per-step dispatch overhead ~4500x the
-ALU cost. This kernel re-derives decode as a TPU program:
+Pallas through Triton. Rice decode is serial within a stream — each
+codeword's position depends on every earlier length — so one GPU thread
+owns one segment and walks it in a loop inside the kernel (the XLA path,
+:func:`.pack_xla.unpack_bits`, instead pays one device-loop iteration per
+sample for the whole batch):
 
-* **Lanes x sublanes = segments.** Up to 1024 independent bitstreams decode
-  in lockstep: 128 on vector lanes and ``sb`` (<= 8) interleaved on
-  sublanes, so every VPU op advances ``sb*128`` serial decode chains at
-  once — the serial dependency (each codeword's position depends on all
-  previous lengths) is amortized across the batch instead of fought.
-* **Word-synchronous loop.** Codewords are <= 25 bits < 32, so a codeword's
-  start offset within its word is always in [0, 25) and every uint32 word
-  contains 1..J codeword starts, ``J = ceil(32/(k+1))``. The kernel walks
-  *words* (not samples), decoding J codewords per word from the 64-bit
-  window (w[t], w[t+1]) with a statically unrolled inner loop.
-* **Static, aligned VMEM addressing only.** Dynamic row indexing in Mosaic
-  costs ~1.3 us per access and unaligned dynamic stores don't compile, so
-  decoded values land in a statically-addressed scratch buffer and move to
-  the output in one aligned bulk store per (word-group, j). There are no
-  gathers or scatters in the kernel.
-* **W-chunked sequential grid.** The word axis is split into chunks; grid
-  position (block, chunk) runs chunks innermost and carries (bit offset,
-  sample count, prefix accumulator) across chunks in VMEM scratch, so
-  arbitrarily long streams fit VMEM.
-* **Fused post-processing.** Un-zigzag and the wrapping-int16 delta prefix
-  sum run inside the inner loop (decode order per lane is sample order), so
-  the kernel emits final samples, not intermediate codes.
-* **Staging + concentration compaction.** Word t's j-th decoded sample
-  lands at staging row t*J + j (t-major), so valid slots' sample indices
-  strictly increase along the slot axis; the dense output is then packed
-  by butterfly concentration (:mod:`.concentrate_pallas`) — no gathers
-  (~56 Melem/s on TPU), no scatters, no sort. When every displacement
-  fits the packed plane's 15-bit field (bound: each word holds >= 1
-  codeword start, so disp <= (W-1)*(J-1)), the kernel computes
-  ``disp = slot - n`` in-register and emits the butterfly's
-  ``disp << 16 | sample`` plane directly — no count table, no XLA
-  displacement build. Wider word axes emit (sample, count-table) staging
-  and route through the blocked two-plane wide kernel.
+* the thread holds a 64-bit MSB-aligned bit window as two uint32 halves
+  and refills it from its own row of words whenever 32 or fewer bits
+  remain, so every codeword (<= 25 bits) is whole inside the top half;
+* the unary quotient is ``clz`` of the top half, capped at the escape
+  marker (``config.ESCAPE_Q``; escapes carry 16 raw bits);
+* with the delta filter the running sum is kept in a register, so the
+  kernel writes finished samples;
+* sample ``i`` of every segment goes to row ``i`` of a (samples, rows)
+  staging array — the 32 threads of a warp store one contiguous line — and
+  XLA transposes it back.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from ..config import ESCAPE_LEN, ESCAPE_Q
+from .pack_pallas import BLOCK, launch_shape
 
 _U32 = jnp.uint32
-_LANES = 128
-_GROUP = 16  # words per inner unrolled group
-_DEAD = -(1 << 31)  # dead slot marker of the packed concentration planes
-
-#: tiled-layout concentration routing (sublane-shift butterfly; no staging
-#: untile transpose). Measured on TPU v5e (round 4): the untiled PACKED
-#: lane-roll kernel wins ~1.45x on narrow slot axes (Nab decode 19.0 vs
-#: 13.1 GB/s), the tiled family wins on wide ones (nEDM decode 13.2 vs
-#: 5.3 GB/s) — so the default ("1") routes packed first where it is
-#: eligible (r_slots and disp_bound < 2**15) and tiled/bias/vd beyond.
-#: DELTARICE_TPU_TILED_CONC=0 disables the tiled family entirely;
-#: =2 forces tiled even where packed would win (A/B benchmarking).
-_TILED_MODE = os.environ.get("DELTARICE_TPU_TILED_CONC", "1")
-_TILED = _TILED_MODE != "0"
-_TILED_FORCE = _TILED_MODE == "2"
 
 
-def untile_rows(a: jnp.ndarray, nseg: int, sb: int,
-                interpret: bool = False) -> jnp.ndarray:
-    """(blocks, R*sb, 128) tiled layout -> (nseg, R) segment-major."""
-    import functools as _ft
-
-    from .transpose_pallas import transpose2d
-
-    blocks, rows_sb, lanes = a.shape
-    bseg = sb * lanes
-    rows = rows_sb // sb
-    t = jax.vmap(_ft.partial(transpose2d, interpret=interpret))(
-        a.reshape(blocks, rows, bseg)
-    )
-    return t.reshape(blocks * bseg, rows)[:nseg]
+def _clz(x):
+    # Triton lowers clz for signed ints only
+    return jax.lax.clz(jax.lax.bitcast_convert_type(x, jnp.int32))
 
 
-def _fit_cols(a: jnp.ndarray, n: int) -> jnp.ndarray:
-    """Slice or zero-pad the minor axis to exactly ``n`` columns."""
-    if a.shape[1] > n:
-        return a[:, :n]
-    if a.shape[1] < n:
-        return jnp.pad(a, ((0, 0), (0, n - a.shape[1])))
-    return a
+def _decode_kernel(words_ref, out_ref, *, n: int, k: int, delta: bool,
+                   rows: int, width: int):
+    pid = pl.program_id(0)
+    row = pid * BLOCK + jnp.arange(BLOCK, dtype=jnp.int32)
+    live = row < rows
+    hi = plgpu.load(words_ref.at[row, 0], mask=live, other=0)
+    lo = plgpu.load(words_ref.at[row, min(1, width - 1)],
+                    mask=live & (width > 1), other=0)
+    kmask = _U32((1 << k) - 1)
+
+    def step(i, carry):
+        hi, lo, nb, wi, acc = carry
+        # refill: bits past nb are zero, so the next word ORs in at nb
+        # (nb in [14, 32] whenever a refill is due)
+        need = nb <= 32
+        w = plgpu.load(words_ref.at[row, jnp.minimum(wi, width - 1)],
+                       mask=live & need & (wi < width), other=0)
+        full = nb >= 32
+        sh = jnp.minimum(nb, 31).astype(_U32)
+        hi = jnp.where(need & ~full, hi | (w >> sh), hi)
+        lo = jnp.where(need, jnp.where(full, w, w << (_U32(32) - sh)), lo)
+        wi = jnp.where(need, wi + 1, wi)
+        nb = jnp.where(need, nb + 32, nb)
+        # decode one codeword from the top half
+        q = jnp.minimum(_clz(hi), ESCAPE_Q)
+        esc = q == ESCAPE_Q
+        u_plain = ((q.astype(_U32) << k)
+                   | ((hi >> (31 - q - k).astype(_U32)) & kmask))
+        u_esc = (hi >> _U32(32 - ESCAPE_LEN)) & _U32(0xFFFF)
+        u = jnp.where(esc, u_esc, u_plain).astype(jnp.int32)
+        clen = jnp.where(esc, ESCAPE_LEN, q + 1 + k)  # in [1, 25]
+        cl = clen.astype(_U32)
+        hi = (hi << cl) | (lo >> (_U32(32) - cl))
+        lo = lo << cl
+        nb = nb - clen
+        d = jnp.where((u & 1) == 0, u >> 1, -((u + 1) >> 1))  # unzigzag
+        acc = acc + d if delta else d  # int16 wrap happens at the store
+        plgpu.store(out_ref.at[i, pl.ds(pid * BLOCK, BLOCK)],
+                    acc.astype(jnp.int16))
+        return hi, lo, nb, wi, acc
+
+    zero = jnp.zeros((BLOCK,), jnp.int32)
+    jax.lax.fori_loop(0, n, step, (hi, lo, zero + 64, zero + 2, zero))
 
 
-def codewords_per_word(k: int) -> int:
-    """Max codeword starts in one 32-bit word: min codeword is k+1 bits."""
-    return min(-(-32 // (k + 1)), 32)
-
-
-def _sublane_factor(nseg: int) -> int:
-    """Segments-per-lane-row batching, a power of two <= 8.
-
-    Block time is bound by the serial decode chain's op latency, which
-    is independent of the sublane width — an (s, 128) op costs one vreg
-    op for any s <= 8 — so the factor only sizes ARRAYS: staging rows
-    are slot*sb + s, and padding a small batch up to sb = 8 multiplies
-    every HBM byte the pipeline touches by 8*128/nseg. Small batches of
-    long segments (NOPTREX: 256 x 500000) therefore take the smallest
-    factor that covers them; batches beyond one 1024-lane block keep
-    the full (8, 128) vreg."""
-    if nseg >= 8 * _LANES:
-        return 8
-    sb = -(-nseg // _LANES)
-    return 1 << max(sb - 1, 0).bit_length()
-
-
-def _chunk_words(j: int, sb: int, heavy: bool = False) -> int:
-    """Words per grid chunk, sized so the staging block fits VMEM with
-    pipeline double-buffering.
-
-    ``j`` is the per-word decode unroll (``j_max`` or the adaptive
-    ``j_eff``), which sets the staging rows per word; ``heavy`` halves
-    the budget for emission modes writing two planes per slot (vd)."""
-    wc = 16
-    cap = 4096 if heavy else 8192
-    while wc * 2 * j * sb <= cap:
-        wc *= 2
-    return wc
-
-
-def _decode_one(w0, w1, pos, k: int):
-    """Decode the codeword at bit ``pos`` (< 32) of the window (w0, w1).
-
-    Returns (u zigzag value i32, clen i32); valid only where pos < 32.
-    The ``(w1 >> (31-p)) >> 1`` form avoids a select for p == 0 (where a
-    single >>32 would be undefined), shortening the loop-carried
-    dependency chain pos -> win -> q -> clen -> pos.
-    """
-    p = (pos & 31).astype(_U32)
-    win = (w0 << p) | ((w1 >> (_U32(31) - p)) >> 1)
-    top8 = win >> _U32(24)
-    # leading-zero count of the 8-bit window head via the f32 exponent:
-    # top8 in [1, 255] converts exactly, so floor(log2) = biased_exp - 127
-    # and q = 7 - floor(log2); top8 == 0 maps past 8 and clamps. Replaces
-    # an 8-compare unary count (~16 VPU ops) with 5 on the decode kernels'
-    # critical path.
-    f = top8.astype(jnp.int32).astype(jnp.float32)  # Mosaic: no u32->f32
-    exp = jax.lax.bitcast_convert_type(f, jnp.int32) >> 23
-    q = jnp.minimum(134 - exp, 8)
-    esc = q == 8
-    rsh = (jnp.int32(31 - k) - q).astype(_U32) & _U32(31)
-    rbits = (win >> rsh) & _U32((1 << k) - 1)
-    u_plain = (q.astype(_U32) << k) | rbits
-    u_esc = (win >> _U32(7)) & _U32(0xFFFF)
-    u = jnp.where(esc, u_esc, u_plain).astype(jnp.int32)
-    # q+1+k for q<8, 25 for the escape: 25 = 8+1+16, so add (16-k) when esc
-    clen = q + (1 + k) + jnp.where(esc, 16 - k, 0)
-    return u, clen
-
-
-#: lookback window (words) of the reduced-service kernel: a lane whose
-#: pending codeword starts up to this many words behind the current one
-#: still decodes it from carried history registers; only deeper lag —
-#: queue-theoretically rare once j_eff exceeds the mean starts/word —
-#: trips the overflow flag and the caller's exact re-decode.
-_LOOKBACK = 2
-
-
-def _unpack_kernel(words_ref, next_ref, stage_ref, ntab_ref, ovf_ref,
-                   carry_ref, scratch_ref, *, wc: int, k: int, delta: bool,
-                   sb: int, packed: bool, n_samples: int, j_eff: int,
-                   bias: bool = False, vd: bool = False):
-    """One grid step: decode ``wc`` words of sb*128 segments.
-
-    words_ref: (wc*sb, 128) uint32 — row t*sb+s is word t of sublane-group s.
-    next_ref:  (GROUP*sb, 128) uint32 — first words of the next chunk.
-    stage_ref: (J*wc*sb, 128) — row (t*J + j)*sb + s (t-major); int16
-               sample, or with ``packed`` the int32 concentration plane
-               ``disp << 16 | sample-halfword`` (dead = INT32_MIN).
-    ntab_ref:  (wc*sb, 128) int32 — samples decoded before word t
-               (absent in ``packed`` mode, where the kernel computes the
-               displacement itself and no host-side table is needed).
-    ovf_ref:   (sb, 128) int32 — per-segment flag, nonzero where a lane
-               fell more than ``_LOOKBACK`` words behind (present only
-               when ``j_eff`` is below the static bound; that segment's
-               output is then invalid and the caller re-decodes it with
-               the full unroll).
-    carry_ref: ((4+V)*sb, 128) int32 scratch — pos / n / acc / ovf and V
-               history words across chunks.
-    scratch_ref: (J*GROUP*sb, 128) int32 scratch — staging for one group.
-    j_eff:     decode SERVICE RATE per word, J. The static bound is
-               ``codewords_per_word(k)`` (no word can hold more starts);
-               hostile (escape-heavy / mismatched-M) streams average far
-               fewer, so callers that know the mean from the headers pass
-               a small J. Unlike a hard per-word unroll, a word with more
-               than J starts is NOT an error: the lane falls behind and
-               catches up from the ``_LOOKBACK``-word history window
-               (``pos`` goes negative; the candidate words are selected
-               per lane from carried registers), so only sustained
-               overload — which the header mean rules out — flags.
-    """
-    detect = ovf_ref is not None
-    v_look = _LOOKBACK if j_eff < codewords_per_word(k) else 0
-    c = pl.program_id(1)
-
-    @pl.when(c == 0)
-    def _():
-        carry_ref[:, :] = jnp.zeros_like(carry_ref)
-
-    pos = carry_ref[0:sb, :]
-    n = carry_ref[sb : 2 * sb, :]
-    acc = carry_ref[2 * sb : 3 * sb, :]
-    ovf = carry_ref[3 * sb : 4 * sb, :]
-    hist = [
-        carry_ref[(4 + i) * sb : (5 + i) * sb, :].astype(_U32)
-        for i in range(v_look)
-    ]  # hist[i] = word t-1-i relative to the word being processed
-    assert sb in (1, 2, 4, 8), "sublane interleave must divide a vreg"
-
-    n_groups = wc // _GROUP
-    gsz = _GROUP * sb
-
-    def group_step(g, carry):
-        pos, n, acc, ovf, *hist = carry
-        row0 = pl.multiple_of(g * gsz, gsz)
-        cur = words_ref[pl.ds(row0, gsz), :]
-        # first word of the next group: within this chunk for g < last,
-        # else the first word of the next chunk
-        within = words_ref[
-            pl.ds(pl.multiple_of(jnp.minimum(g + 1, n_groups - 1) * gsz,
-                                 gsz), sb), :
-        ]
-        nxt0 = jnp.where(g + 1 < n_groups, within, next_ref[0:sb, :])
-        ntab_vals = []
-        for tt in range(_GROUP):
-            w0 = cur[tt * sb : (tt + 1) * sb, :]
-            w1 = (
-                cur[(tt + 1) * sb : (tt + 2) * sb, :]
-                if tt + 1 < _GROUP
-                else nxt0
-            )
-            if not packed:
-                ntab_vals.append(n)
-            if detect and v_look:
-                # stalled past the history window: codewords were skipped
-                # and this lane's stream is desynchronized for good
-                ovf = ovf | (
-                    (pos < -32 * v_look) & (n < n_samples)
-                ).astype(jnp.int32)
-            for j in range(j_eff):
-                if v_look:
-                    active = (pos < 32) & (pos >= -32 * v_look)
-                    # select the codeword's (w0, w1) window from the
-                    # current word and V carried history words by the
-                    # lag d = pos >> 5 in {-V..0}
-                    wa, wb = w0, w1
-                    for i in range(v_look):
-                        behind = pos < -32 * i
-                        wb = jnp.where(behind, wa, wb)
-                        wa = jnp.where(behind, hist[i], wa)
-                else:
-                    active = pos < 32
-                    wa, wb = w0, w1
-                u, clen = _decode_one(wa, wb, pos, k)
-                x = (u >> 1) ^ -(u & 1)  # un-zigzag
-                if delta:
-                    s = ((acc + x) << 16) >> 16  # wrapping int16 prefix sum
-                    acc = jnp.where(active, s, acc)
-                    out = acc
-                else:
-                    out = x
-                # t-major staging: slot (t, j) at row t*J + j, so valid
-                # slots' sample indices strictly increase along rows — the
-                # precondition for butterfly-concentration compaction
-                if packed:
-                    slot = (c * wc + g * _GROUP + tt) * j_eff + j
-                    valid = active & (n < n_samples)
-                    disp = slot - n
-                    if vd:
-                        # explicit (value, displacement) planes: any
-                        # displacement < 2**31 routes exactly (NOPTREX-
-                        # scale staging), no clamp, no flags
-                        row = (tt * j_eff + j) * sb
-                        scratch_ref[row : row + sb, :] = jnp.where(
-                            valid, out, 0
-                        )
-                        off2 = j_eff * _GROUP * sb
-                        scratch_ref[off2 + row : off2 + row + sb, :] = (
-                            jnp.where(valid, disp, -1)
-                        )
-                    elif bias:
-                        # sign-biased plane: 16-bit displacement field
-                        # (see concentrate_pallas._w16_pass); rare wider
-                        # displacements clamp to dead + flag the segment
-                        # for exact re-decode (speculation, same remedy
-                        # as service-rate lag)
-                        over = valid & (disp >= (1 << 16))
-                        ovf = ovf | over.astype(jnp.int32)
-                        plane = ((disp << 16) | (out & 0xFFFF)) ^ _DEAD
-                        scratch_ref[(tt * j_eff + j) * sb : (tt * j_eff + j + 1) * sb, :] = (
-                            jnp.where(valid & ~over, plane, _DEAD)
-                        )
-                    else:
-                        scratch_ref[(tt * j_eff + j) * sb : (tt * j_eff + j + 1) * sb, :] = (
-                            jnp.where(valid, (disp << 16) | (out & 0xFFFF),
-                                      _DEAD)
-                        )
-                else:
-                    scratch_ref[(tt * j_eff + j) * sb : (tt * j_eff + j + 1) * sb, :] = (
-                        jnp.where(active, out, 0)
-                    )
-                pos = jnp.where(active, pos + clen, pos)
-                n = n + active.astype(jnp.int32)
-            for i in range(v_look - 1, 0, -1):
-                hist[i] = hist[i - 1]
-            if v_look:
-                hist[0] = w0
-            pos = pos - 32
-        stage_ref[pl.ds(pl.multiple_of(row0 * j_eff, gsz), gsz * j_eff), :] = (
-            scratch_ref[0 : gsz * j_eff, :].astype(stage_ref.dtype)
-        )
-        if vd:
-            # second plane: displacements staged in the scratch's
-            # second half (ntab_ref carries the disp plane in vd mode)
-            ntab_ref[pl.ds(pl.multiple_of(row0 * j_eff, gsz), gsz * j_eff), :] = (
-                scratch_ref[gsz * j_eff : 2 * gsz * j_eff, :]
-            )
-        elif not packed:
-            ntab_ref[pl.ds(row0, gsz), :] = jnp.concatenate(ntab_vals, axis=0)
-        return (pos, n, acc, ovf, *hist)
-
-    pos, n, acc, ovf, *hist = jax.lax.fori_loop(
-        0, n_groups, group_step, (pos, n, acc, ovf, *hist)
-    )
-    carry_ref[0:sb, :] = pos
-    carry_ref[sb : 2 * sb, :] = n
-    carry_ref[2 * sb : 3 * sb, :] = acc
-    carry_ref[3 * sb : 4 * sb, :] = ovf
-    for i in range(v_look):
-        carry_ref[(4 + i) * sb : (5 + i) * sb, :] = hist[i].astype(jnp.int32)
-    if detect:
-        @pl.when(c == pl.num_programs(1) - 1)
-        def _():
-            # n < n_samples at the end of the (padded) word axis means a
-            # lagging lane ran out of grid columns before catching up —
-            # same remedy as deep lag: exact re-decode of the segment
-            flags = ovf | (n < n_samples).astype(jnp.int32)
-            if sb < 8:  # flag block stays a full (8, 128) vreg tile
-                flags = jnp.concatenate(
-                    [flags, jnp.zeros((8 - sb, _LANES), jnp.int32)], axis=0
-                )
-            ovf_ref[:, :] = flags
-
-
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
 def unpack_decode_pallas(words: jnp.ndarray, n_samples: int, k: int,
-                         delta: bool = True, interpret: bool = False,
-                         j_eff: int | None = None,
-                         speculate: bool = False):
-    """Decode per-segment Rice streams to samples on TPU, as ONE program:
-    Mosaic kernel -> layout transposes -> concentration compaction. (The
-    pipeline is fusion-safe because it contains no gathers; an earlier
-    gather-based compaction had to live in its own dispatch.)
+                         delta: bool = True, interpret: bool = False):
+    """Decode per-segment word streams on the GPU.
 
     Args:
-      words: (num_segments, W) uint32, one stream per row, zero-padded
-        past each stream's true words.
-      n_samples: samples to decode per segment.
+      words: (rows, W) uint32, one stream per row, zero-padded past it.
+      n_samples: samples to decode per row (rows shorter than that decode
+        garbage past their end; callers slice by true counts).
       k: log2(M).
-      delta: fuse the [1,-1] inverse (prefix sum); otherwise return the
-        un-zigzagged pre-filter values for a generic-filter inverse outside.
-      j_eff: decode service rate (codeword decodes per word). ``None``
-        (or >= the static bound ``codewords_per_word(k)``) decodes
-        exactly; a smaller value — sized from the header-known mean
-        starts/word, which for escape-heavy / mismatched-M streams is
-        ~1.3-2.4 against static bounds of 8-16 — cuts kernel work and
-        staging traffic by ~j_max/j_eff. Words holding more than
-        ``j_eff`` starts are absorbed by a ``_LOOKBACK``-word history
-        window (the lane falls behind and catches up); only deeper lag
-        invalidates, and the return becomes ``(samples, bad)`` with
-        ``bad`` a per-segment bool array — re-decode flagged segments
-        with ``j_eff=None``. ``j_eff >= 2`` is enforced (zero-pad words
-        decode as escape chains with up to 2 starts/word).
-
-      speculate: allow data-speculative fast paths that may invalidate
-        individual segments. Currently one exists: wide slot axes whose
-        STATIC displacement bound exceeds the single-plane kernel's
-        16-bit field (nEDM/NOPTREX-length segments) but whose TYPICAL
-        displacements fit easily — clamp the overflowing displacements,
-        ride the ~1.5x-faster sign-biased single-plane butterfly, and
-        flag the (rare) affected segments for exact re-decode. Forces
-        the ``(samples, bad)`` return shape when the path engages.
+      delta: fuse the delta filter's inverse (prefix sum); False returns
+        the un-zigzagged filtered values for a generic-FIR inverse.
+      interpret: run in Pallas interpret mode (CPU tests).
 
     Returns:
-      (num_segments, n_samples) int16 — or ``(samples, bad)`` when
-      ``j_eff`` is below the static bound or a speculative path engaged.
+      (rows, n_samples) int16.
     """
-    nseg = words.shape[0]
-    sb = _sublane_factor(nseg)
-    j_max = codewords_per_word(k)
-    exact = j_eff is None or j_eff >= j_max
-    j = j_max if exact else max(2, j_eff)
-    wc = _chunk_words(j, sb)
-    n_chunks = -(-words.shape[1] // wc)
-    # packed-plane emission needs every displacement to fit the plane's
-    # 15-bit field. A decode in word t is of a codeword starting in word
-    # t-d (d <= _LOOKBACK), and words 0..t-d-1 each contain >= 1 start,
-    # so disp = t*J + j - n <= (W-1)*(J-1) + _LOOKBACK. The slot axis
-    # itself must also stay under 2**15: the packed butterfly rolls whole
-    # VMEM rows along lanes, whose cost (and Mosaic compile time) blows
-    # up for wider axes — those route through the blocked wide kernels
-    # instead (e.g. k=15 with j_max=2 and W > 2**14).
-    disp_bound = (n_chunks * wc - 1) * (j - 1) + (_LOOKBACK if not exact
-                                                 else 0)
-    spec = False
-    r_slots = n_chunks * wc * j
-    # tiled-compaction eligibility: the butterfly runs in the kernel's
-    # own (slot*sb+s, lane) layout — every pass a sublane shift, no lane
-    # rolls, and the untile transpose moves to the int16 OUTPUT (samples
-    # wide) instead of the int32 staging (slots*j wide). The slot-axis
-    # cap bounds the block-stride stripe kernel's VMEM window.
-    tiled_ok = _TILED and r_slots <= (1 << 17)
-    # narrow staging (Nab-scale): the untiled packed lane-roll kernel is
-    # the measured winner (~1.45x over tiled on [1024, 7000] decode) —
-    # route it first wherever its 15-bit displacement field suffices
-    packed_ok = (disp_bound < (1 << 15) and r_slots < (1 << 15)
-                 and not _TILED_FORCE)
-    if packed_ok:
-        from .concentrate_pallas import concentrate_packed
-
-        plane, ovf = _kernel_program(
-            words, k, delta, sb, wc, j, interpret, True, n_samples
-        )
-        out = concentrate_packed((plane,), n_samples, wide=False)
-        out = ((out << 16) >> 16).astype(jnp.int16)
-    elif tiled_ok and disp_bound < (1 << 16):
-        # exact: plain plane for 15-bit displacement bounds, sign-biased
-        # plane for 16-bit ones — no clamping possible either way
-        from .concentrate_pallas import concentrate_tiled
-
-        use_bias = disp_bound >= (1 << 15)
-        plane, ovf = _kernel_program(
-            words, k, delta, sb, wc, j, interpret, True, n_samples,
-            tiled=True, bias=use_bias,
-        )
-        out_t = concentrate_tiled((plane,), n_samples, sb, disp_bound,
-                                  "int16", interpret, use_bias)
-        out = _fit_cols(untile_rows(out_t, words.shape[0], sb, interpret),
-                        n_samples)
-    elif tiled_ok and speculate:
-        # static bound over 16 bits, typical displacements far under it
-        # (~slots - samples): the kernel clamps the rare overflow to
-        # dead + flags the segment, the biased tiled butterfly runs,
-        # flagged segments re-decode exactly (ntab + wide planes)
-        from .concentrate_pallas import concentrate_tiled
-
-        plane, ovf = _kernel_program(
-            words, k, delta, sb, wc, j, interpret, True, n_samples,
-            tiled=True, bias=True,
-        )
-        out_t = concentrate_tiled((plane,), n_samples, sb, (1 << 16) - 1,
-                                  "int16", interpret, True)
-        out = _fit_cols(untile_rows(out_t, words.shape[0], sb, interpret),
-                        n_samples)
-        spec = True
-        bad = ovf != 0
-    elif _TILED and r_slots <= (1 << 21):
-        # NOPTREX-scale staging (or non-speculative wide displacements):
-        # explicit (value, displacement) tiled planes route EXACTLY for
-        # any displacement, through up to three sublane-shift levels
-        from .concentrate_pallas import concentrate_tiled_vd
-
-        wc2 = _chunk_words(j, sb, heavy=True)  # two planes per slot
-        nc2 = -(-words.shape[1] // wc2)
-        bound2 = (nc2 * wc2 - 1) * (j - 1) + (0 if exact else _LOOKBACK)
-        (plane_v, plane_d), ovf = _kernel_program(
-            words, k, delta, sb, wc2, j, interpret, True, n_samples,
-            tiled=True, vd=True,
-        )
-        out_t = concentrate_tiled_vd(plane_v, plane_d, n_samples, sb,
-                                     bound2, interpret)
-        out = _fit_cols(untile_rows(out_t, words.shape[0], sb, interpret),
-                        n_samples)
-    elif _TILED_FORCE and disp_bound < (1 << 15) and r_slots < (1 << 15):
-        # forced-tiled A/B mode with no eligible tiled branch above:
-        # fall back to packed rather than the slow staged compaction
-        from .concentrate_pallas import concentrate_packed
-
-        plane, ovf = _kernel_program(
-            words, k, delta, sb, wc, j, interpret, True, n_samples
-        )
-        out = concentrate_packed((plane,), n_samples, wide=False)
-        out = ((out << 16) >> 16).astype(jnp.int16)
-    else:
-        (stage, ntab), ovf = _kernel_program(
-            words, k, delta, sb, wc, j, interpret, False, n_samples
-        )
-        res = _compaction(stage, ntab, n_samples, wc, j,
-                          0 if exact else _LOOKBACK, speculate)
-        if isinstance(res, tuple):
-            out, spec_bad = res
-            spec = True
-            bad = (ovf != 0) | spec_bad
-        else:
-            out = res
-    if not spec:
-        bad = ovf != 0
-    if exact and not spec:
-        return out
-    return out, bad
-
-
-@functools.partial(jax.jit,
-                   static_argnums=(1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11))
-def _kernel_program(words: jnp.ndarray, k: int, delta: bool, sb: int,
-                    wc: int, j_eff: int, interpret: bool = False,
-                    packed: bool = True, n_samples: int = 0,
-                    tiled: bool = False, bias: bool = False,
-                    vd: bool = False):
-    """Run the decode kernel. With ``packed`` the kernel emits one int32
-    packed concentration plane (``disp << 16 | sample``); otherwise an
-    int16 sample plane plus the per-word ``ntab`` count table for the XLA
-    displacement build in :func:`_compaction`. Returns
-    ``(plane_or_(stage, ntab), ovf)`` where ``ovf`` is a per-segment-group
-    overflow indicator (all zeros when ``j_eff`` is the static bound).
-    ``tiled`` (packed only) skips the untile transpose and returns the
-    plane in the kernel's own (blocks, slot*sb+s, lane) layout for
-    :func:`..concentrate_pallas.concentrate_tiled`. ``bias`` (packed
-    only) emits the sign-biased plane with a 16-bit displacement field,
-    clamping wider displacements to dead and flagging their segments in
-    ``ovf`` for exact re-decode."""
-    from .transpose_pallas import transpose2d
-
-    nseg, w_in = words.shape
-    service = j_eff < codewords_per_word(k)
-    detect = service or bias
-    bseg = sb * _LANES
-    blocks = -(-nseg // bseg)
-    n_chunks = -(-w_in // wc)
-    # pad: one whole extra chunk of zero words for the next_ref window
-    cols = (n_chunks + 1) * wc
-    words = jnp.pad(words, ((0, blocks * bseg - nseg), (0, cols - w_in)))
-
-    # (S, cols) -> (blocks, cols*sb, 128) with row t*sb + s, lane l for
-    # segment (block, s*128 + l)
-    w3 = words.reshape(blocks, bseg, cols)
-    wt = jax.vmap(functools.partial(transpose2d, interpret=interpret))(
-        w3
-    )  # (blocks, cols, bseg)
-    wt = wt.reshape(blocks, cols, sb, _LANES).reshape(
-        blocks, cols * sb, _LANES
-    )
-
-    kern = functools.partial(
-        _unpack_kernel, wc=wc, k=k, delta=delta, sb=sb, packed=packed,
-        n_samples=n_samples, j_eff=j_eff, bias=bias, vd=vd,
-    )
-
-    def body(words_ref, next_ref, *rest):
-        out_refs = list(rest[:-2])
-        carry_ref, scratch_ref = rest[-2:]
-        stage_ref = out_refs.pop(0)
-        ntab_ref = out_refs.pop(0) if (not packed or vd) else None
-        ovf_ref = out_refs.pop(0) if detect else None
-        kern(words_ref, next_ref, stage_ref, ntab_ref, ovf_ref, carry_ref,
-             scratch_ref)
-
-    gsz = _GROUP * sb
-    stage_spec = pl.BlockSpec((None, j_eff * wc * sb, _LANES),
-                              lambda b, c: (b, c, 0),
-                              memory_space=pltpu.VMEM)
-    stage_shape = jax.ShapeDtypeStruct(
-        (blocks, n_chunks * j_eff * wc * sb, _LANES),
-        jnp.int32 if (packed and not vd) else jnp.int16,
-    )
-    out_specs = [stage_spec]
-    out_shapes = [stage_shape]
-    if vd:
-        # displacement plane, same slot layout as the sample plane
-        out_specs.append(stage_spec)
-        out_shapes.append(jax.ShapeDtypeStruct(
-            (blocks, n_chunks * j_eff * wc * sb, _LANES), jnp.int32
-        ))
-    if not packed:
-        out_specs.append(
-            pl.BlockSpec((None, wc * sb, _LANES), lambda b, c: (b, c, 0),
-                         memory_space=pltpu.VMEM)
-        )
-        out_shapes.append(
-            jax.ShapeDtypeStruct((blocks, n_chunks * wc * sb, _LANES),
-                                 jnp.int32)
-        )
-    if detect:
-        # flag block padded to a full (8, 128) tile for any sb
-        out_specs.append(
-            pl.BlockSpec((None, 8, _LANES), lambda b, c: (b, 0, 0),
-                         memory_space=pltpu.VMEM)
-        )
-        out_shapes.append(
-            jax.ShapeDtypeStruct((blocks, 8, _LANES), jnp.int32)
-        )
-    out = pl.pallas_call(
-        body,
-        grid=(blocks, n_chunks),
-        in_specs=[
-            pl.BlockSpec((None, wc * sb, _LANES), lambda b, c: (b, c, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((None, gsz, _LANES),
-                         lambda b, c: (b, (c + 1) * (wc // _GROUP), 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shapes,
-        scratch_shapes=[
-            pltpu.VMEM(
-                ((4 + (_LOOKBACK if service else 0)) * sb, _LANES),
-                jnp.int32,
-            ),
-            pltpu.VMEM(((2 if vd else 1) * j_eff * gsz, _LANES),
-                       jnp.int32),
-        ],
+    rows, width = words.shape
+    if rows == 0 or n_samples == 0 or width == 0:
+        return jnp.zeros((rows, n_samples), jnp.int16)
+    programs, threads = launch_shape(rows)
+    kernel = functools.partial(_decode_kernel, n=n_samples, k=k,
+                               delta=delta, rows=rows, width=width)
+    staged = pl.pallas_call(
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((n_samples, threads), jnp.int16),
+        grid=(programs,),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-    )(wt, wt)
-
-    def untile(a):
-        # rows (c, j*wc+t_rel, s) with minor (s, lane) -> per-segment rows
-        rows = a.shape[1] // sb
-        t = jax.vmap(functools.partial(transpose2d, interpret=interpret))(
-            a.reshape(blocks, rows, bseg)
-        )
-        return t.reshape(blocks * bseg, rows)[:nseg]
-
-    if detect:
-        # (blocks, s, lane) -> per-segment flags, matching segment order
-        # (block, s*128 + lane); the flag block is a full 8-row tile,
-        # rows past sb are padding
-        ovf = out[-1][:, :sb, :].reshape(blocks * bseg)[:nseg]
-    else:
-        ovf = jnp.zeros((nseg,), jnp.int32)
-    if vd:
-        assert tiled, "vd emission serves the tiled concentration"
-        return (out[0], out[1]), ovf
-    if packed:
-        return (out[0] if tiled else untile(out[0])), ovf
-    return (untile(out[0]), untile(out[1])), ovf
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6))
-def _compaction(stage: jnp.ndarray, ntab: jnp.ndarray, n_samples: int,
-                wc: int, j_max: int, disp_slack: int = 0,
-                speculate: bool = False):
-    """Pack staged samples densely by sample index via butterfly
-    concentration.
-
-    Staging column t*J + j (t-major) holds the j-th decode of word t,
-    whose sample index is ntab[t] + j (valid iff j < ntab[t+1] - ntab[t]),
-    so valid destinations strictly increase along the slot axis — the
-    concentration precondition. Everything is built densely by
-    broadcasting: no gathers (per-element gathers run ~56 Melem/s on TPU)
-    and no sort (~14 shift+select passes instead of ~196 compare-exchange
-    passes). Phantom decodes from a stream's zero-padding words get
-    destinations >= n_samples and fall off the slice (callers guarantee
-    >= 1 trailing pad word per stream); the final staged word's count is
-    unknown (no ntab[W]) but it is always such a pad word.
-    """
-    from .concentrate_pallas import concentrate_pallas
-
-    nseg, n_words = ntab.shape
-    nxt = jnp.concatenate(
-        [ntab[:, 1:], jnp.full((nseg, 1), 0x7FFFFFFF, jnp.int32)], axis=1
-    )
-    cnt = nxt - ntab
-    # broadcast to t-major staging order (t, j)
-    base = jnp.broadcast_to(
-        ntab[:, :, None], (nseg, n_words, j_max)
-    )
-    c_b = jnp.broadcast_to(cnt[:, :, None], (nseg, n_words, j_max))
-    j_b = jax.lax.broadcasted_iota(jnp.int32, (nseg, n_words, j_max), 2)
-    r = n_words * j_max
-    dest = (base + j_b).reshape(nseg, r)
-    valid = (j_b < c_b).reshape(nseg, r)
-    slot = jnp.arange(r, dtype=jnp.int32)[None, :]
-    disp = jnp.where(valid & (dest < n_samples), slot - dest, -1)
-    # every word holds >= 1 codeword start, so disp <= (W-1)*(J-1) plus
-    # the service kernel's lookback slack; the static bound lets 16-bit
-    # samples ride the single-plane kernel
-    bound = (n_words - 1) * (j_max - 1) + disp_slack
-    if (speculate and bound >= (1 << 16) and r >= (1 << 15)
-            and stage.dtype.itemsize <= 2):
-        # nEDM/NOPTREX-length segments: the static bound overflows the
-        # single-plane kernel's 16-bit displacement field, but actual
-        # displacements are ~(slots - samples) and typically fit with
-        # room to spare. Clamp the overflow to dead, run the ~1.5x-faster
-        # plane, and flag affected segments for exact re-decode.
-        from .concentrate_pallas import _concentrate_wide16
-
-        over = disp >= (1 << 16)
-        disp = jnp.where(over, -1, disp)
-        out = _concentrate_wide16(stage, disp, n_samples, (1 << 16) - 1)
-        return out, jnp.any(over, axis=1)
-    return concentrate_pallas(stage, disp, n_samples, bound)
+        name="deltarice_decode",
+    )(words.astype(_U32))
+    return staged.T[:rows]

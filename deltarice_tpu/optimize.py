@@ -8,10 +8,10 @@ minimize the expected encoded bits per sample
 hill-climbing over integer filter coefficients, examining all neighbors
 within +/-span per tap ((2*span+1)^n_taps candidates), memoizing evaluated
 filters, rejecting trailing-zero taps, and stopping when no neighbor
-improves. This module implements that spec TPU-natively: the bit-cost of
-every (candidate filter, candidate M) pair is a vectorized JAX evaluation
-over the sample waveforms — candidate filters batch on one axis, all 16
-values of k evaluate simultaneously on another.
+improves. This module implements that spec as batched device work: the
+bit-cost of every (candidate filter, candidate M) pair is a vectorized
+JAX evaluation over the sample waveforms — candidate filters batch on one
+axis, all 16 values of k evaluate simultaneously on another.
 """
 
 from __future__ import annotations

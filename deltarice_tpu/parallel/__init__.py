@@ -2,9 +2,10 @@
 
 The reference's only parallelism is OpenMP threads over waveform segments
 within one HDF5 chunk (``/root/reference/src/deltaRice.c:417-426,327-335``).
-Here that becomes the vectorized segment axis of the device kernels, and a
+Here that becomes one GPU thread per segment in the device kernels, and a
 new, first-class layer shards *chunks* across a ``jax.sharding.Mesh`` — the
-TPU-native replacement for "one filter call per chunk on the host thread".
+multi-device replacement for "one filter call per chunk on the host
+thread".
 """
 
 from .sharded import (

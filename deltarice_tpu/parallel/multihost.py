@@ -1,4 +1,4 @@
-"""Multi-host (pod-slice) chunk pipeline.
+"""Multi-host chunk pipeline.
 
 The reference has no distributed story (OpenMP only; MPI-HDF5 explicitly
 unsupported). Here multi-host scaling is pure data parallelism: every host
@@ -18,13 +18,11 @@ import os
 import numpy as np
 
 import jax
-import jax.numpy as jnp
 
 from ..config import RiceConfig
 from ..codec import (
-    _redecode_bad_rows,
+    _WORD_BUCKET,
     _segment_layout,
-    _service_hint,
     frame_stream,
     gather_segments,
     walk_headers,
@@ -45,9 +43,9 @@ def initialize_distributed(**kwargs) -> None:
     process_id, ...) any initialization failure propagates — a
     misconfigured cluster must not silently fall back to single-process.
     Without kwargs, initialization runs whenever a recognized multi-process
-    launch environment is present (explicit coordinator env vars, SLURM, or
-    a Cloud TPU pod — the environments ``jax.distributed.initialize`` can
-    auto-detect); a failure there also propagates, because running such a
+    launch environment is present (explicit coordinator env vars or SLURM —
+    the environments ``jax.distributed.initialize`` can auto-detect); a
+    failure there also propagates, because running such a
     cluster uninitialized would silently return per-host partial results.
     On a plain single-process host this is a no-op.
     """
@@ -61,10 +59,6 @@ def initialize_distributed(**kwargs) -> None:
         "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
         # SLURM multi-task launches (auto-detected by jax.distributed)
         "SLURM_JOB_ID",
-        # Cloud TPU pod / megascale launches (auto-detected by
-        # jax.distributed; TPU_WORKER_HOSTNAMES alone is NOT used — some
-        # single-host TPU runtimes set it unconditionally)
-        "MEGASCALE_COORDINATOR_ADDRESS",
     )
     if any(os.environ.get(v) for v in cluster_env):
         # single-task SLURM allocations are common for 1-host jobs; those
@@ -126,7 +120,7 @@ def decode_chunks_multihost(streams, cfg: RiceConfig,
                             mesh=None) -> np.ndarray | None:
     """Decode per-chunk framed byte streams across all hosts' devices — the
     read-side counterpart of :func:`encode_chunks_multihost` (the reference
-    read path, ``/root/reference/src/deltaRice.c:301-358``, at pod scale).
+    read path, ``/root/reference/src/deltaRice.c:301-358``, across hosts).
 
     Every process passes the same ``streams`` list (direct-chunk reads are
     host-cheap, so each host reads the full blob list; the device work is
@@ -146,40 +140,22 @@ def decode_chunks_multihost(streams, cfg: RiceConfig,
     total = int(bufs[0][0])
     if any(int(b[0]) != total for b in bufs):
         raise ValueError("multihost decode requires equal-sized chunks")
-    nseg, length, nvalid = _segment_layout(total, cfg)
+    nseg, length, _ = _segment_layout(total, cfg)
     per_chunk = [walk_headers(buf, nseg) for buf in bufs]
     maxw = max(int(c.max(initial=0)) for c, _ in per_chunk)
-    bucket = -(-(maxw + 1) // 256) * 256
+    bucket = -(-(maxw + 1) // _WORD_BUCKET) * _WORD_BUCKET
     nchunks = len(bufs)
     ndev = mesh.devices.size
     pad = (-nchunks) % ndev
     words = np.zeros((nchunks + pad, nseg, bucket), dtype=np.uint32)
     for i, (buf, (counts, starts)) in enumerate(zip(bufs, per_chunk)):
         words[i] = gather_segments(buf, counts, starts, bucket)
-    # size the service rate from the global header stats — the pod read
-    # gets the same ladder speedup as the single-chip path; lag-flagged
-    # segments re-decode exactly on the host after the gather
-    j_eff = _service_hint(
-        np.concatenate([c for c, _ in per_chunk]),
-        np.tile(nvalid, nchunks), cfg.k,
-    )
-    res = decode_chunks_sharded(
-        put_sharded(words, mesh), length, cfg, mesh, j_eff=j_eff
-    )
-    out, bad = res if j_eff is not None else (res, None)
+    out = decode_chunks_sharded(put_sharded(words, mesh), length, cfg, mesh)
     if jax.process_count() > 1:
         from jax.experimental import multihost_utils
 
         out = multihost_utils.process_allgather(out, tiled=True)
-        if bad is not None:
-            bad = multihost_utils.process_allgather(bad, tiled=True)
         if jax.process_index() != 0:
             return None
-    out = np.asarray(out).reshape((nchunks + pad) * nseg, length)
-    if bad is not None:
-        out = _redecode_bad_rows(
-            out, np.asarray(bad).reshape(-1),
-            words.reshape((nchunks + pad) * nseg, bucket), length, cfg,
-        )
-    out = out.reshape(nchunks + pad, nseg * length)
+    out = np.asarray(out).reshape(nchunks + pad, nseg * length)
     return out[:nchunks, :total]

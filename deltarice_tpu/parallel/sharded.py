@@ -2,16 +2,18 @@
 
 Each HDF5 chunk is an independent bitstream (the format guarantees it:
 ``writeWholeCompressedByteString`` frames every chunk standalone,
-``/root/reference/src/deltaRice.c:383-465``), so the natural TPU scaling
-strategy is pure data parallelism: a batch of chunks shards across the
-``"chunks"`` mesh axis, every device encodes/decodes its local chunks with
-the same jitted kernels used on one chip, and no collective is needed until
+``/root/reference/src/deltaRice.c:383-465``), so the natural multi-device
+scaling strategy is pure data parallelism: a batch of chunks shards across
+the ``"chunks"`` mesh axis, every device encodes/decodes its local chunks
+with the same kernels used on one device, and no collective is needed until
 the host gathers compressed bytes for the file writer.
 
 Within a device, the reference's OpenMP ``parallel for`` over waveform
-segments (``src/deltaRice.c:417-426``) is already the vectorized segment
-axis of the kernels — so the two parallelism levels compose as
-``(chunks-on-mesh, segments-on-vector-lanes)``.
+segments (``src/deltaRice.c:417-426``) is one GPU thread per segment (or
+the vectorized segment axis of the XLA path) — so the two parallelism
+levels compose as ``(chunks-on-mesh, segments-on-threads)``. The path is
+chosen from the mesh's device platform by
+:func:`deltarice_tpu.backend.resolve`.
 """
 
 from __future__ import annotations
@@ -23,22 +25,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..backend import platform_of, resolve
+from ..codec import decode_segments, encode_segments
 from ..config import RiceConfig
-from ..ops.prefilter import prefilter_decode, prefilter_encode
-from ..ops.rice import codeword_lengths_values, unzigzag, zigzag
-from ..ops.pack_xla import pack_bits, unpack_bits
 
 CHUNK_AXIS = "chunks"
-
-
-def _resolve(choice: str, mesh: "Mesh", on_tpu: str, fallback: str) -> str:
-    """Pick the kernel path from the MESH's device platform (the session's
-    default backend may differ from the mesh, e.g. CPU test meshes beside
-    a real TPU)."""
-    if choice != "auto":
-        return choice
-    platform = next(iter(mesh.devices.flat)).platform
-    return on_tpu if platform == "tpu" else fallback
 
 
 def chunk_mesh(devices=None, axis_name: str = CHUNK_AXIS) -> Mesh:
@@ -49,62 +40,22 @@ def chunk_mesh(devices=None, axis_name: str = CHUNK_AXIS) -> Mesh:
 
 
 def _encode_local(x, nvalid, cfg: RiceConfig, max_words: int, method: str):
-    """Encode a local (C, S, L) batch of chunks; same math as
-    :func:`deltarice_tpu.codec.encode_segments`, batched over chunks.
-    ``method`` follows the codec's dispatch: the Mosaic kernel on TPU,
-    the XLA packer elsewhere (and always on CPU test meshes)."""
+    """Encode a local (C, S, L) batch of chunks with the single-device path
+    (:func:`deltarice_tpu.codec.encode_segments`); ``method`` is already
+    resolved from the mesh's platform."""
     c, s, length = x.shape
-    flat = x.reshape(c * s, length)
-    if method == "pallas":
-        from ..ops.pack_pallas import pack_encode_pallas
-
-        if cfg.is_delta:
-            words, nwords = pack_encode_pallas(
-                flat, nvalid.reshape(-1), cfg.k, max_words, True
-            )
-        else:
-            d = prefilter_encode(flat, cfg.filt)
-            words, nwords = pack_encode_pallas(
-                d, nvalid.reshape(-1), cfg.k, max_words, False
-            )
-        return words.reshape(c, s, max_words), nwords.reshape(c, s)
-    d = prefilter_encode(flat, cfg.filt)
-    u = zigzag(d)
-    lens, vals = codeword_lengths_values(u, cfg.k)
-    mask = jnp.arange(length, dtype=jnp.int32)[None, :] < nvalid.reshape(-1, 1)
-    lens = jnp.where(mask, lens, 0)
-    words, nwords = pack_bits(lens, vals, max_words, method)
+    words, nwords = encode_segments(x.reshape(c * s, length),
+                                    nvalid.reshape(-1), cfg, max_words,
+                                    method)
     return words.reshape(c, s, max_words), nwords.reshape(c, s)
 
 
-def _decode_local(words, n_samples: int, cfg: RiceConfig,
-                  backend: str = "auto", j_eff: int | None = None):
-    """Decode a local (C, S, W) batch. With ``j_eff`` the reduced-service
-    kernel runs and a (C, S) bool lag-flag plane is returned alongside;
-    the host re-decodes flagged segments exactly (same contract as the
-    single-chip :func:`deltarice_tpu.codec._decode_device`)."""
+def _decode_local(words, n_samples: int, cfg: RiceConfig, backend: str):
+    """Decode a local (C, S, W) batch with the single-device path;
+    ``backend`` is already resolved."""
     c, s, w = words.shape
-    flat = words.reshape(c * s, w)
-    if backend == "pallas":
-        from ..ops.unpack_pallas import unpack_decode_pallas
-
-        res = unpack_decode_pallas(flat, n_samples, cfg.k, cfg.is_delta,
-                                   False, j_eff)
-        out, bad = res if isinstance(res, tuple) else (res, None)
-        if not cfg.is_delta:
-            out = prefilter_decode(out, cfg.filt)
-        out = out.reshape(c, s, n_samples)
-        if j_eff is not None:
-            if bad is None:
-                bad = jnp.zeros((c * s,), jnp.bool_)
-            return out, bad.reshape(c, s)
-        return out
-    u = unpack_bits(flat, n_samples, cfg.k)
-    out = prefilter_decode(unzigzag(u), cfg.filt)
-    out = out.reshape(c, s, n_samples)
-    if j_eff is not None:  # XLA path is exact: nothing ever flags
-        return out, jnp.zeros((c, s), jnp.bool_)
-    return out
+    out = decode_segments(words.reshape(c * s, w), n_samples, cfg, backend)
+    return out.reshape(c, s, n_samples)
 
 
 @functools.partial(
@@ -125,7 +76,7 @@ def encode_chunks_sharded(
     chunks — ``nvalid == 0`` — to round up). Returns sharded
     ``words (C, S, max_words)`` and ``nwords (C, S)``.
     """
-    method = _resolve(method, mesh, "pallas", "segsum")
+    method = resolve(method, "segsum", platform_of(mesh.devices))
     spec = P(axis_name)
     fn = jax.shard_map(
         lambda x, nv: _encode_local(x, nv, cfg, max_words, method),
@@ -139,7 +90,7 @@ def encode_chunks_sharded(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("cfg", "n_samples", "axis_name", "mesh", "j_eff"),
+    static_argnames=("cfg", "n_samples", "axis_name", "mesh", "backend"),
 )
 def decode_chunks_sharded(
     words: jnp.ndarray,
@@ -148,23 +99,16 @@ def decode_chunks_sharded(
     mesh: Mesh,
     axis_name: str = CHUNK_AXIS,
     backend: str = "auto",
-    j_eff: int | None = None,
 ):
-    """Decode a (num_chunks, segments, W) uint32 batch sharded over the mesh.
-
-    ``j_eff`` (static; from :func:`deltarice_tpu.codec._service_hint` over
-    the header stats) runs the reduced-service kernel on every device —
-    the multi-chip read path gets the same ladder speedup as the
-    single-chip one. When given, returns ``(samples, lag_flags (C, S))``;
-    the caller re-decodes flagged segments exactly on the host."""
-    backend = _resolve(backend, mesh, "pallas", "scan")
+    """Decode a (num_chunks, segments, W) uint32 batch sharded over the
+    mesh; returns sharded (num_chunks, segments, n_samples) int16."""
+    backend = resolve(backend, "scan", platform_of(mesh.devices))
     spec = P(axis_name)
-    outs = (spec, spec) if j_eff is not None else spec
     fn = jax.shard_map(
-        lambda w: _decode_local(w, n_samples, cfg, backend, j_eff),
+        lambda w: _decode_local(w, n_samples, cfg, backend),
         mesh=mesh,
         in_specs=(spec,),
-        out_specs=outs,
+        out_specs=spec,
         check_vma=False,
     )
     return fn(words)
@@ -189,8 +133,9 @@ def roundtrip_check_step(
     """
     spec = P(axis_name)
 
-    be = _resolve("auto", mesh, "pallas", "segsum")
-    bd = _resolve("auto", mesh, "pallas", "scan")
+    platform = platform_of(mesh.devices)
+    be = resolve("auto", "segsum", platform)
+    bd = resolve("auto", "scan", platform)
 
     def local(x, nv):
         words, nwords = _encode_local(x, nv, cfg, max_words, be)

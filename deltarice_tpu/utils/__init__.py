@@ -1,11 +1,9 @@
-"""Utilities: compilation caching, chunk batching helpers, profiling."""
+"""Utilities: compilation caching, warm-up, profiling."""
 
 from .cache import enable_persistent_cache
-from .profiling import device_trace, sync_cost, throughput
+from .profiling import device_trace
 
 __all__ = [
     "enable_persistent_cache",
     "device_trace",
-    "sync_cost",
-    "throughput",
 ]

@@ -1,11 +1,19 @@
 """Persistent XLA compilation cache.
 
-First-compile of the codec programs on TPU costs minutes for production
-shapes (the encoder's prefix-sum/searchsorted pipeline dominates). The
-reference C filter has no such cost, so to reach its cold-start behavior the
-framework persists compiled executables across processes via JAX's
-compilation cache. Call :func:`enable_persistent_cache` before the first
-jitted call (idempotent), or set ``DELTARICE_TPU_CACHE=/path``.
+The reference C filter has no compile step; the codec's device programs
+compile on first use in every process. JAX's persistent compilation cache
+keeps compiled executables across processes:
+
+* ``JAX_COMPILATION_CACHE_DIR`` set: JAX uses that directory and this
+  module sets nothing;
+* otherwise the cache lives at one fixed directory inside the checkout
+  (``.jax_cache/``, git-ignored) — a fixed path, because the path is part
+  of the cache key;
+* ``DELTARICE_TPU_CACHE=0`` disables it.
+
+:func:`enable_persistent_cache` runs lazily from the codec entry points
+(never at import, so importing the package does not change a host
+application's JAX config).
 """
 
 from __future__ import annotations
@@ -14,24 +22,24 @@ import os
 
 import jax
 
-_DEFAULT = os.path.expanduser("~/.cache/deltarice_tpu/xla")
+_CHECKOUT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_DEFAULT = os.path.join(_CHECKOUT, ".jax_cache")
 _enabled = False
 
 
 def enable_persistent_cache(path: str | None = None) -> str:
-    """Enable JAX's persistent compilation cache (idempotent).
-
-    Verified effective even under remote-compile PJRT setups (73 s -> 1 s
-    on the second process for the same program). Disable by setting
-    ``DELTARICE_TPU_CACHE=0``.
-    """
+    """Enable JAX's persistent compilation cache (idempotent); returns the
+    directory in use, or "" when disabled."""
     global _enabled
-    env = os.environ.get("DELTARICE_TPU_CACHE")
-    if env == "0":
+    if os.environ.get("DELTARICE_TPU_CACHE") == "0":
         return ""
-    if path is None and env is None and jax.config.jax_compilation_cache_dir:
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    if path is None and jax.config.jax_compilation_cache_dir:
         return jax.config.jax_compilation_cache_dir  # respect the host app
-    cache_dir = path or env or _DEFAULT
+    cache_dir = path or _DEFAULT
     if not _enabled:
         try:
             os.makedirs(cache_dir, exist_ok=True)
@@ -40,6 +48,6 @@ def enable_persistent_cache(path: str | None = None) -> str:
                 "jax_persistent_cache_min_compile_time_secs", 1.0
             )
         except Exception:
-            return ""  # read-only $HOME etc. must not break import
+            return ""  # a read-only checkout must not break the codec
         _enabled = True
     return cache_dir

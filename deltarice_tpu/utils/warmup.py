@@ -1,9 +1,8 @@
-"""Cold-start control: pre-compile the codec's TPU programs.
+"""Cold-start control: pre-compile the codec's device programs.
 
-The reference C filter has zero warm-up; here the first compile of a
-production shape costs tens of seconds (minutes through a remote-compile
-relay). The persistent compilation cache (:mod:`.cache`) makes every
-LATER process warm — this module fixes the FIRST one: run
+The reference C filter has zero warm-up; here the first use of a
+production shape compiles its programs. The persistent compilation
+cache (:mod:`.cache`) makes every LATER process warm — this module fixes the FIRST one: run
 ``deltarice_tpu.warmup(...)`` (or ``deltarice-tpu warmup``) once at
 deploy time, e.g. from the install pipeline, and the cache is populated
 before production traffic arrives.
@@ -65,10 +64,7 @@ def warmup(data=None, cfg: RiceConfig | None = None, nseg: int = 1024,
     for b in range(1, max(extra_buckets, 0) + 1):
         bucket = (base + b) * codec._WORD_BUCKET
         words = codec.gather_segments(buf, counts, starts, bucket)
-        codec.decode_segments(
-            jnp.asarray(words), length, cfg, counts=counts,
-            nvalid=np.full(nseg_, length, np.int32),
-        )
+        codec.decode_segments(jnp.asarray(words), length, cfg)
     dt = time.perf_counter() - t0
     if verbose:
         print(f"deltarice_tpu warmup: {data.shape} M={cfg.m} "

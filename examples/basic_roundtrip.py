@@ -1,5 +1,5 @@
 """Minimal write/read example — the README example of the reference,
-TPU-native (reference: /root/reference/README.md:64-92)."""
+on the device (reference: /root/reference/README.md:64-92)."""
 
 import numpy as np
 import h5py

@@ -1,4 +1,4 @@
-/* Pure-C HDF5 round-trip through the Delta-Rice TPU-framework filter.
+/* Pure-C HDF5 round-trip through this framework's Delta-Rice filter.
  *
  * Role parity with the reference's C integration example
  * (/root/reference/examples/testCode.c — chunked dataset, cd_values,

@@ -14,8 +14,6 @@ from deltarice_tpu.parallel.multihost import encode_chunks_multihost
 
 def main():
     devices = jax.devices()
-    if len(devices) < 2:
-        devices = jax.devices("cpu")
     mesh = chunk_mesh(devices)
     print(f"mesh: {mesh.devices.size} x {devices[0].platform}")
 

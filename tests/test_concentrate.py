@@ -1,15 +1,8 @@
-"""Concentration-placement unit tests.
-
-The codec's compaction layer has three implementations that must agree:
-the XLA butterfly (:mod:`deltarice_tpu.ops.concentrate`, any backend),
-the packed-plane VMEM kernel (``concentrate_pallas``/``concentrate_packed``,
-slot axes < 2**15), and the blocked two-plane kernel (``_concentrate_wide``,
-arbitrary slot axes / displacements — nEDM/NOPTREX-length segments).
-All are checked against a direct numpy compaction model.
+"""Butterfly concentration (:mod:`deltarice_tpu.ops.concentrate`, XLA)
+checked against a direct numpy compaction model.
 
 The reference has no counterpart (its streams are compacted serially by a
-bit cursor, /root/reference/src/deltaRice.c:191-244); this layer exists
-only in the TPU design.
+bit cursor, /root/reference/src/deltaRice.c:191-244).
 """
 
 from __future__ import annotations
@@ -17,14 +10,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from deltarice_tpu.ops.concentrate import concentrate
-
-tpu_only = pytest.mark.skipif(
-    jax.default_backend() != "tpu", reason="needs a TPU for the Mosaic kernel"
-)
 
 
 def make_case(rows, r, density, seed=0, dtype=np.int16):
@@ -50,71 +38,6 @@ def test_xla_concentrate_matches_numpy(density):
     assert np.array_equal(out, dense)
 
 
-@tpu_only
-@pytest.mark.parametrize("r,dtype", [(5000, np.int16), (20480, np.int16),
-                                     (20480, np.uint32)])
-def test_packed_kernel_matches_numpy(r, dtype):
-    from deltarice_tpu.ops.concentrate_pallas import concentrate_pallas
-
-    vals, disp, n_out, dense = make_case(64, r, 0.4, seed=r, dtype=dtype)
-    out = np.asarray(
-        concentrate_pallas(jnp.asarray(vals), jnp.asarray(disp), n_out)
-    )
-    assert np.array_equal(out, dense)
-
-
-@tpu_only
-@pytest.mark.parametrize(
-    "rows,r,dtype",
-    [
-        (16, 40000, np.int16),     # > 2**15: single extra-block window
-        (8, 100352, np.int32),     # nEDM-scale, multi-block + high passes
-        (24, 70000, np.uint32),    # 32-bit payload, no half-word split
-        (8, 600000, np.int16),     # NOPTREX-scale, narrow high stripes
-    ],
-)
-def test_wide_kernel_matches_numpy(rows, r, dtype):
-    from deltarice_tpu.ops.concentrate_pallas import _concentrate_wide
-
-    vals, disp, n_out, dense = make_case(rows, r, 0.35, seed=r, dtype=dtype)
-    out = np.asarray(
-        _concentrate_wide(jnp.asarray(vals), jnp.asarray(disp), n_out)
-    )
-    assert np.array_equal(out, dense)
-
-
-@tpu_only
-@pytest.mark.parametrize("r,density", [(49152, 0.5), (40000, 0.9),
-                                       (65536, 0.35)])
-def test_wide16_kernel_matches_numpy(r, density):
-    """Single-plane sign-biased path (16-bit payload, disp < 2**16)."""
-    from deltarice_tpu.ops.concentrate_pallas import _concentrate_wide16
-
-    vals, disp, n_out, dense = make_case(24, r, density, seed=r)
-    bound = int(disp.max())
-    assert bound < (1 << 16), "case must stay in the wide16 regime"
-    out = np.asarray(
-        _concentrate_wide16(jnp.asarray(vals), jnp.asarray(disp), n_out,
-                            bound)
-    )
-    assert np.array_equal(out, dense)
-
-
-@tpu_only
-def test_wide16_dead_collision():
-    """A valid element with value 0 and disp 0 equals the dead word; the
-    output must still be 0 at its destination."""
-    from deltarice_tpu.ops.concentrate_pallas import _concentrate_wide16
-
-    vals = np.zeros((8, 40000), np.int16)
-    disp = np.full((8, 40000), -1, np.int32)
-    disp[:, 0] = 0
-    out = np.asarray(
-        _concentrate_wide16(jnp.asarray(vals), jnp.asarray(disp), 4, 30000)
-    )
-    assert np.array_equal(out, np.zeros((8, 4), np.int16))
-
-
 @pytest.mark.parametrize("r", [500, 40000])
 def test_n_out_wider_than_slot_axis(r):
     """A stream shorter than its segment stages fewer slots than the
@@ -127,253 +50,3 @@ def test_n_out_wider_than_slot_axis(r):
     assert out.shape == (16, want)
     assert np.array_equal(out[:, :n_out], dense)
     assert not out[:, n_out:].any()
-    if jax.default_backend() == "tpu":
-        from deltarice_tpu.ops.concentrate_pallas import concentrate_pallas
-
-        out2 = np.asarray(
-            concentrate_pallas(jnp.asarray(vals), jnp.asarray(disp), want)
-        )
-        assert out2.shape == (16, want)
-        assert np.array_equal(out2, out)
-
-
-@tpu_only
-def test_short_stream_long_segment_roundtrip():
-    """End-to-end regression for the fuzz case: decode must handle a
-    64-sample chunk framed as one 1024-sample segment (slots < samples)."""
-    import deltarice_tpu as drt
-
-    rng = np.random.default_rng(3)
-    data = rng.integers(-32768, 32768, 64).astype(np.int16)
-    cfg = drt.RiceConfig(16384, 1024, (1,))
-    assert np.array_equal(drt.decompress(drt.compress(data, cfg), cfg), data)
-
-
-def _tile(plane: np.ndarray, sb: int = 8, lanes: int = 128) -> np.ndarray:
-    """(S, R) segment-major -> (blocks, R*sb, lanes) kernel-tiled layout
-    (row = slot*sb + s, segment = (block, s*lanes + lane))."""
-    s_count, r = plane.shape
-    bseg = sb * lanes
-    blocks = -(-s_count // bseg)
-    pad_val = plane.ravel()[0] * 0
-    arr = np.full((blocks * bseg, r), pad_val, plane.dtype)
-    arr[:s_count] = plane
-    return np.ascontiguousarray(
-        arr.reshape(blocks, sb, lanes, r).transpose(0, 3, 1, 2)
-        .reshape(blocks, r * sb, lanes)
-    )
-
-
-def _untile(tiled: np.ndarray, s_count: int, sb: int = 8,
-            lanes: int = 128, n_out: int | None = None) -> np.ndarray:
-    blocks, rows, _ = tiled.shape
-    r = rows // sb
-    out = (
-        tiled.reshape(blocks, r, sb, lanes).transpose(0, 2, 3, 1)
-        .reshape(blocks * sb * lanes, r)[:s_count]
-    )
-    if n_out is not None:  # concentrate_tiled returns whole blocks;
-        # callers slice/pad the segment-major columns (mirrors _fit_cols)
-        if out.shape[1] >= n_out:
-            out = out[:, :n_out]
-        else:
-            out = np.pad(out, ((0, 0), (0, n_out - out.shape[1])))
-    return out
-
-
-class TestWideInterpret:
-    """Interpret-mode (CPU) checks of the blocked wide kernels — added
-    with the right-to-left raw-block carry so the halo is read once."""
-
-    @pytest.mark.parametrize("r,density", [(9000, 0.4), (40000, 0.35)])
-    def test_wide16_carry(self, r, density):
-        from deltarice_tpu.ops.concentrate_pallas import _concentrate_wide16
-
-        vals, disp, n_out, dense = make_case(16, r, density, seed=r + 3)
-        bound = int(disp.max())
-        out = np.asarray(_concentrate_wide16(
-            jnp.asarray(vals), jnp.asarray(disp), n_out, bound, True
-        ))
-        assert np.array_equal(out, dense)
-
-    @pytest.mark.parametrize("r,dtype", [(9000, np.int16),
-                                         (40000, np.uint32)])
-    def test_wide_two_plane_carry(self, r, dtype):
-        from deltarice_tpu.ops.concentrate_pallas import _concentrate_wide
-
-        vals, disp, n_out, dense = make_case(16, r, 0.35, seed=r + 4,
-                                             dtype=dtype)
-        out = np.asarray(_concentrate_wide(
-            jnp.asarray(vals), jnp.asarray(disp), n_out, True
-        ))
-        assert np.array_equal(out, dense)
-
-    def test_wide_huge_displacement_carry(self):
-        from deltarice_tpu.ops.concentrate_pallas import _concentrate_wide
-
-        r = 50000
-        vals = np.zeros((8, r), dtype=np.int16)
-        disp = np.full((8, r), -1, dtype=np.int32)
-        vals[:, r - 1] = np.arange(8) + 7
-        disp[:, r - 1] = r - 1  # destination 0, crosses every block
-        out = np.asarray(_concentrate_wide(
-            jnp.asarray(vals), jnp.asarray(disp), 4, True
-        ))
-        expect = np.zeros((8, 4), dtype=np.int16)
-        expect[:, 0] = np.arange(8) + 7
-        assert np.array_equal(out, expect)
-
-
-class TestTiledVD:
-    """Interpret-mode checks of the two-plane tiled multi-level
-    concentration (NOPTREX-scale displacement range, sublane shifts)."""
-
-    @pytest.mark.parametrize("r,density,sb", [
-        (900, 0.9, 8),       # L1 only (disp < _TBLK)
-        (6000, 0.4, 2),      # L1 + L2
-        (50000, 0.35, 1),    # L1 + L2, mid-final with wide range
-        (80000, 0.3, 2),     # L1 + L2 + L3 (disp crosses _TBLK*WB)
-    ])
-    def test_matches_numpy(self, r, density, sb):
-        from deltarice_tpu.ops.concentrate_pallas import (
-            concentrate_tiled_vd)
-
-        nseg = sb * 128
-        vals, disp, n_out, dense = make_case(nseg, r, density, seed=r + 9)
-        bound = max(int(disp.max()), 0)
-        out = np.asarray(concentrate_tiled_vd(
-            jnp.asarray(_tile(vals, sb)), jnp.asarray(_tile(disp, sb)),
-            n_out, sb, bound, True,
-        ))
-        got = _untile(out, nseg, sb, n_out=n_out)
-        assert np.array_equal(got, dense)
-
-    def test_multi_block_grid(self):
-        """More than one 1024-segment block exercises grid dim 0."""
-        from deltarice_tpu.ops.concentrate_pallas import (
-            concentrate_tiled_vd)
-
-        vals, disp, n_out, dense = make_case(2048, 1200, 0.4, seed=77)
-        out = np.asarray(concentrate_tiled_vd(
-            jnp.asarray(_tile(vals, 8)), jnp.asarray(_tile(disp, 8)),
-            n_out, 8, max(int(disp.max()), 0), True,
-        ))
-        assert np.array_equal(_untile(out, 2048, 8, n_out=n_out), dense)
-
-    def test_lone_far_element(self):
-        """A single element crossing every level lands at slot 0."""
-        from deltarice_tpu.ops.concentrate_pallas import (
-            concentrate_tiled_vd)
-
-        r = 70000
-        vals = np.zeros((128, r), np.int16)
-        disp = np.full((128, r), -1, np.int32)
-        vals[:, r - 1] = np.arange(128) % 31 + 1
-        disp[:, r - 1] = r - 1
-        out = np.asarray(concentrate_tiled_vd(
-            jnp.asarray(_tile(vals, 1)), jnp.asarray(_tile(disp, 1)),
-            4, 1, r - 1, True,
-        ))
-        got = _untile(out, 128, 1, n_out=4)
-        assert np.array_equal(got[:, 0], vals[:, r - 1])
-        assert not got[:, 1:].any()
-
-
-class TestTiledConcentration:
-    """Interpret-mode checks of the tiled (sublane-shift) butterfly —
-    runnable on CPU; the TPU equivalence is covered end-to-end by the
-    golden-file round trips."""
-
-    @pytest.mark.parametrize("r,density", [(200, 0.5), (1500, 0.3),
-                                           (5000, 0.4), (9000, 0.8)])
-    def test_int16_matches_numpy(self, r, density):
-        from deltarice_tpu.ops.concentrate_pallas import (
-            _DEAD, concentrate_tiled)
-
-        vals, disp, n_out, dense = make_case(300, r, density, seed=r)
-        bound = max(int(disp.max()), 0)
-        assert bound < (1 << 15)
-        plane = np.where(
-            disp >= 0, (disp.astype(np.int64) << 16)
-            | (vals.astype(np.int64) & 0xFFFF), _DEAD
-        ).astype(np.int32)
-        out = np.asarray(concentrate_tiled(
-            (jnp.asarray(_tile(plane)),), n_out, 8, bound, "int16",
-            interpret=True,
-        ))
-        got = _untile(out, 300, n_out=n_out)
-        assert np.array_equal(got, dense)
-
-    def test_u32_follower_matches_numpy(self):
-        from deltarice_tpu.ops.concentrate_pallas import (
-            _DEAD, concentrate_tiled)
-
-        vals, disp, n_out, dense = make_case(160, 6000, 0.35, seed=5,
-                                             dtype=np.uint32)
-        bound = int(disp.max())
-        lead = np.where(
-            disp >= 0, (disp.astype(np.int64) << 16)
-            | ((vals >> 16).astype(np.int64) & 0xFFFF), _DEAD
-        ).astype(np.int32)
-        fol = (vals & 0xFFFF).astype(np.int16)
-        out = np.asarray(concentrate_tiled(
-            (jnp.asarray(_tile(lead)), jnp.asarray(_tile(fol))),
-            n_out, 8, bound, "u32", interpret=True,
-        ))
-        assert np.array_equal(_untile(out, 160, n_out=n_out), dense)
-
-    @pytest.mark.parametrize("r,density", [(3000, 0.3), (60000, 0.3),
-                                           (9000, 0.9)])
-    def test_bias_int16_matches_numpy(self, r, density):
-        """Sign-biased plane: displacements up to 2**16 - 1."""
-        from deltarice_tpu.ops.concentrate_pallas import (
-            _DEAD, concentrate_tiled)
-
-        vals, disp, n_out, dense = make_case(40, r, density, seed=r + 1)
-        bound = max(int(disp.max()), 0)
-        assert bound < (1 << 16)
-        plane = np.where(
-            disp >= 0, ((disp.astype(np.int64) << 16)
-                        | (vals.astype(np.int64) & 0xFFFF))
-            ^ (1 << 31), _DEAD
-        ).astype(np.int64).astype(np.int32)
-        out = np.asarray(concentrate_tiled(
-            (jnp.asarray(_tile(plane)),), n_out, 8, bound, "int16",
-            True, True,
-        ))
-        assert np.array_equal(_untile(out, 40, n_out=n_out), dense)
-
-    def test_n_out_wider_than_slots_pads_zero(self):
-        from deltarice_tpu.ops.concentrate_pallas import (
-            _DEAD, concentrate_tiled)
-
-        vals, disp, n_out, dense = make_case(100, 300, 0.2, seed=2)
-        plane = np.where(
-            disp >= 0, (disp.astype(np.int64) << 16)
-            | (vals.astype(np.int64) & 0xFFFF), _DEAD
-        ).astype(np.int32)
-        want = 800
-        out = np.asarray(concentrate_tiled(
-            (jnp.asarray(_tile(plane)),), want, 8,
-            max(int(disp.max()), 0), "int16", interpret=True,
-        ))
-        got = _untile(out, 100, n_out=want)
-        assert got.shape == (100, want)
-        assert np.array_equal(got[:, :n_out], dense)
-        assert not got[:, n_out:].any()
-
-
-@tpu_only
-def test_wide_kernel_huge_displacement():
-    """A lone valid element at the far right routes across every block."""
-    from deltarice_tpu.ops.concentrate_pallas import _concentrate_wide
-
-    r = 300000
-    vals = np.zeros((8, r), dtype=np.int16)
-    disp = np.full((8, r), -1, dtype=np.int32)
-    vals[:, r - 1] = np.arange(8) + 7
-    disp[:, r - 1] = r - 1  # destination 0
-    out = np.asarray(_concentrate_wide(jnp.asarray(vals), jnp.asarray(disp), 4))
-    expect = np.zeros((8, 4), dtype=np.int16)
-    expect[:, 0] = np.arange(8) + 7
-    assert np.array_equal(out, expect)

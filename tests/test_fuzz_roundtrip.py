@@ -12,7 +12,6 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-import jax
 
 import deltarice_tpu as drt
 
@@ -70,11 +69,11 @@ def test_fuzz_roundtrip_cpu_paths_deep(seed):
 
 
 @pytest.mark.slow
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="production kernel paths need the TPU")
+@pytest.mark.gpu
 @pytest.mark.parametrize("seed", range(3))
 def test_fuzz_roundtrip_long_segments(seed):
-    """Long-segment draws: split encode + wide/speculative decode."""
+    """Long-segment draws through the GPU kernels: split encode + one
+    decode thread per long segment."""
     rng = np.random.default_rng(2000 + seed)
     length = int(rng.integers(30000, 140000))
     nseg = int(rng.integers(1, 4))

@@ -56,35 +56,9 @@ def test_native_bytes_match_device_codec(registered, tmp_path):
 @pytest.mark.skipif(not oracle_available(), reason="no reference oracle")
 def test_native_bytes_match_reference(registered):
     """ctypes-level: dr_compress output == reference C filter output."""
-    import ctypes
-
-    lib = ctypes.CDLL(str(native.library_path()))
-    libc = ctypes.CDLL(None)
-    libc.free.argtypes = [ctypes.c_void_p]
     x = _data((1, 2000), seed=2).ravel()
     cfg = drt.RiceConfig(16, 500)
-    cd = np.asarray(cfg.to_cd_values(), dtype=np.uint32)
-
-    lib.dr_config_parse.restype = ctypes.c_int
-    class DrConfig(ctypes.Structure):
-        _fields_ = [
-            ("m", ctypes.c_uint32), ("k", ctypes.c_int),
-            ("seg_len", ctypes.c_int64),
-            ("filt", ctypes.c_void_p), ("filt_len", ctypes.c_size_t),
-        ]
-    cfg_c = DrConfig()
-    cd_arr = (ctypes.c_uint * len(cd))(*cd.tolist())
-    assert lib.dr_config_parse(len(cd), cd_arr, ctypes.byref(cfg_c)) == 0
-    out = ctypes.c_void_p()
-    nwords = ctypes.c_size_t()
-    lib.dr_compress.restype = ctypes.c_int
-    assert lib.dr_compress(
-        x.ctypes.data_as(ctypes.c_void_p), x.size, ctypes.byref(cfg_c),
-        ctypes.byref(out), ctypes.byref(nwords),
-    ) == 0
-    blob = ctypes.string_at(out.value, nwords.value * 4)
-    libc.free(out)
-    lib.dr_config_free(ctypes.byref(cfg_c))
+    blob = native.native_compress(x, cfg.to_cd_values())
 
     oracle = ReferenceOracle()
     assert blob == oracle.compress(x, cfg.to_cd_values())

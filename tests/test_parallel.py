@@ -75,57 +75,13 @@ def test_sharded_decode_matches_input():
     np.testing.assert_array_equal(np.asarray(out), x)
 
 
-def test_sharded_decode_service_rate():
-    """Reduced-service decode under the mesh (j_eff static): the XLA path
-    is exact and returns all-clear flags; output matches the input."""
-    mesh = _cpu_mesh()
-    length = 128
-    cfg = drt.RiceConfig(4, length)
-    x, nvalid = _chunk_batch(nchunks=8, nseg=2, length=length, seed=5)
-    words, nwords = encode_chunks_sharded(
-        put_sharded(x, mesh), put_sharded(nvalid, mesh), cfg, mesh,
-        cfg.max_words(length),
-    )
-    out, bad = decode_chunks_sharded(words, length, cfg, mesh, j_eff=3)
-    assert not np.asarray(bad).any()
-    np.testing.assert_array_equal(np.asarray(out), x)
-
-
-def test_sharded_decode_service_rate_tpu():
-    """The reduced-service Mosaic kernel inside shard_map on a real TPU
-    mesh: escape-heavy chunks at J=2, flagged rows re-decoded exactly."""
-    tpus = [d for d in jax.devices() if d.platform == "tpu"]
-    if not tpus:
-        pytest.skip("no TPU")
-    from deltarice_tpu.codec import _redecode_bad_rows
-
-    mesh = chunk_mesh(tpus[:1])
-    length = 512
-    cfg = drt.RiceConfig(8, length)
-    rng = np.random.default_rng(7)
-    x = rng.integers(-32768, 32768, (4, 8, length)).astype(np.int16)
-    nvalid = np.full((4, 8), length, np.int32)
-    words, nwords = encode_chunks_sharded(
-        put_sharded(x, mesh), put_sharded(nvalid, mesh), cfg, mesh,
-        cfg.max_words(length),
-    )
-    out, bad = decode_chunks_sharded(words, length, cfg, mesh, j_eff=2)
-    w2 = np.asarray(words).reshape(4 * 8, -1)
-    got = _redecode_bad_rows(
-        np.asarray(out).reshape(4 * 8, length), np.asarray(bad).reshape(-1),
-        w2, length, cfg,
-    )
-    np.testing.assert_array_equal(got.reshape(4, 8, length), x)
-
-
-def test_sharded_pallas_on_tpu_mesh():
-    """Single-device TPU mesh exercises the Mosaic kernels inside shard_map."""
-    tpus = [d for d in jax.devices() if d.platform == "tpu"]
-    if not tpus:
-        pytest.skip("no TPU")
-    mesh = chunk_mesh(tpus[:1])
+@pytest.mark.gpu
+def test_sharded_kernels_on_gpu_mesh():
+    """A GPU mesh runs the kernels inside shard_map."""
+    mesh = chunk_mesh(jax.devices("gpu"))
     cfg = drt.RiceConfig(8, 256)
-    x, nvalid = _chunk_batch(nchunks=2, nseg=4, length=256, seed=9)
+    nchunks = 2 * len(jax.devices("gpu"))
+    x, nvalid = _chunk_batch(nchunks=nchunks, nseg=4, length=256, seed=9)
     words, nwords, mism = roundtrip_check_step(
         put_sharded(x, mesh), put_sharded(nvalid, mesh), cfg, mesh,
         cfg.max_words(256),

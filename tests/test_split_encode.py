@@ -1,12 +1,12 @@
 """Sub-block-split encoding of long waveforms.
 
-Long segments split into P sub-blocks across kernel lanes (delta state
-seeded with the predecessor's last sample) whose packed sub-streams merge
-at bit offsets — byte-identical to the serial pass by construction. These
-tests pin that equivalence on the XLA path (any backend); the TPU-kernel
-variant is exercised by the geometry benches and the golden-file suite.
+Long segments split into P sub-blocks, one encode thread each (delta
+state seeded with the predecessor's last sample), whose packed
+sub-streams merge at bit offsets — byte-identical to the serial pass by
+construction. These tests pin that equivalence on the XLA path (any
+backend); the GPU-kernel variant is in ``test_pallas_encode.py``.
 The reference's parallelism stops at whole waveforms
-(``/root/reference/src/deltaRice.c:417-426``); this layer is TPU-design.
+(``/root/reference/src/deltaRice.c:417-426``).
 """
 
 from __future__ import annotations
@@ -135,71 +135,3 @@ def test_merge_substreams_numpy_vs_native(use_native, monkeypatch):
         assert nw[s] == len(want)
         np.testing.assert_array_equal(got[s, : len(want)], want)
         assert not got[s, len(want):].any()
-
-
-@pytest.mark.parametrize("rows,parts,w,seed", [(16, 16, 600, 1),
-                                               (8, 4, 3000, 2),
-                                               (32, 8, 130, 3)])
-def test_device_merge_matches_host(rows, parts, w, seed):
-    """The single-concentration device merge is bit-identical to the
-    host merge, including word-aligned part boundaries (where a tail
-    extends its own run instead of folding into the successor), short
-    last parts, and empty (zero-bit) parts. Interpret mode on CPU."""
-    from deltarice_tpu.codec import _merge_device
-
-    rng = np.random.default_rng(seed)
-    words3 = rng.integers(0, 2**32, (rows, parts, w), dtype=np.uint32)
-    nbits2 = rng.integers(70, w * 32 - 40, (rows, parts)).astype(np.int64)
-    nbits2[0, -1] = 17
-    nbits2[1, -2:] = 0
-    if parts >= 3:
-        nbits2[2, 0] = ((nbits2[2, 0] + 31) // 32) * 32  # aligned bound
-    for r in range(rows):
-        for p in range(parts):
-            nb = int(nbits2[r, p])
-            full, rem = nb // 32, nb & 31
-            if rem:
-                words3[r, p, full] &= np.uint32(0xFFFFFFFF) << np.uint32(
-                    32 - rem
-                )
-            words3[r, p, full + (1 if rem else 0):] = 0
-    exp, _ = merge_substreams(words3, nbits2)
-    nw = (nbits2.sum(axis=1) + 31) >> 5
-    out_w = -(-max(int(nw.max()) + 1, parts) // 256) * 256
-    got = np.asarray(_merge_device(jnp.asarray(words3),
-                                   jnp.asarray(nbits2), out_w, True))
-    maxw = int(nw.max())
-    np.testing.assert_array_equal(got[:, :maxw], exp[:, :maxw])
-    assert not got[:, maxw:].any()
-
-
-@pytest.mark.skipif(jnp.zeros(1).devices().pop().platform != "tpu",
-                    reason="needs a TPU for the Mosaic kernel")
-@pytest.mark.slow
-def test_split_halfrate_with_flagged_substreams():
-    """Half-rate split encode: a few rows carry adjacent near-escapes
-    (their sub-streams double-emit and flag) inside an otherwise dense
-    long-segment batch — the pre-merge device re-encode must restore
-    byte equality with the serial stream."""
-    import deltarice_tpu as drt
-    from deltarice_tpu.codec import _rate_hint, _split_layout, _split_parts
-
-    rng = np.random.default_rng(31)
-    length = 24000
-    x = np.round(np.cumsum(rng.normal(0, 6, (32, length)), axis=-1)).astype(
-        np.int16
-    )
-    x[3, 5000:5200:2] = 32000   # double-emit pairs in two rows
-    x[3, 5001:5201:2] = -32000
-    x[17, 9000:9100:2] = 31000
-    x[17, 9001:9101:2] = -31000
-    cfg = drt.RiceConfig(8, length)
-    parts = _split_parts(32, length, cfg)
-    assert parts > 1, "case must take the split path"
-    ls = _split_layout(x[:1], np.full(1, length, np.int32), parts)[3]
-    assert _rate_hint(x, cfg, ls) > 1, "dense batch must pick a reduced rate"
-    blob = drt.compress(x, cfg, method="pallas")
-    assert bytes(blob) == bytes(drt.compress(x, cfg, method="segsum"))
-    np.testing.assert_array_equal(
-        drt.decompress(blob, cfg).reshape(32, length), x
-    )

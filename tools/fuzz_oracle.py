@@ -3,7 +3,7 @@
 Draws random (data distribution, M, segment length, filter) configurations,
 compresses with both implementations, asserts byte equality, and
 cross-decodes each's output with the other. Shapes are drawn from a small
-set so TPU compiles amortize.
+set so device compiles amortize.
 
 Usage: python tools/fuzz_oracle.py [num_cases] [seed]
 """
